@@ -1,0 +1,140 @@
+"""Build and bind the port's hand-written CUDA kernels.
+
+Each source under ``csrc/`` is compiled by ``nvcc`` into its own shared
+library with a plain C interface and loaded with ``ctypes`` (no PyTorch
+headers, so a build takes seconds).  Libraries are built on first use into
+``build/hpslam_tpu_torch/`` at the repository root (or ``$HPSLAM_TORCH_BUILD``),
+which ``.gitignore`` lists; the file name carries a hash of the source and
+the flags, so an edited source is never served by a stale build.
+
+Every wrapper counts its kernel launches in ``LAUNCHES`` (one per launch of
+the kernel it wraps, nowhere else), so a run can show that the main path
+went through the kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from collections import Counter
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_CSRC = os.path.join(_HERE, "csrc")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+# C signatures: (name, argtypes, restype); P = pointer, I = int, F = float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_long
+SIGNATURES = {
+    "topk_rows": [
+        ("hp_topk_rows", [_P, _P, _I, _I, _I, _P, _P, _P], _I),
+    ],
+    "maploss": [
+        ("hp_maploss_scratch_floats", [_I] * 9, _L),
+        ("hp_maploss",
+         [_P, _I, _P, _I, _P, _P, _P, _P,        # row .. Bc
+          _P, _P,                                # gw, cw pointer arrays
+          _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,  # n S u C emb/hid nb skip
+          _I, _F, _I, _I, _F, _I, _I,            # flags, coef, w_color
+          _P, _P, _P, _P, _P, _P, _I,            # scratch .. wsplits
+          _P], _I),
+    ],
+}
+
+LAUNCHES: Counter = Counter()
+_LIBS: dict = {}
+_LOCK = threading.Lock()
+
+
+def reset_launches() -> None:
+    LAUNCHES.clear()
+
+
+def build_dir() -> str:
+    d = os.environ.get("HPSLAM_TORCH_BUILD")
+    if not d:
+        d = os.path.join(os.path.dirname(_HERE), "build", "hpslam_tpu_torch")
+    os.makedirs(d, exist_ok=True)
+    return d
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built with the "
+                       "CUDA toolkit's nvcc (set CUDA_HOME)")
+
+
+def lib_path(name: str) -> str:
+    src = os.path.join(_CSRC, f"{name}.cu")
+    with open(src, "rb") as f:
+        h = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    return os.path.join(build_dir(), f"lib{name}_{h.hexdigest()[:16]}.so")
+
+
+def compile_command(name: str, out: str, extra=()) -> list:
+    return [nvcc_path(), *NVCC_FLAGS, *extra, "-o", out,
+            os.path.join(_CSRC, f"{name}.cu")]
+
+
+def start_build(name: str, extra=()):
+    """Start nvcc for one source; returns (Popen or None if built, path)."""
+    out = lib_path(name)
+    if os.path.exists(out):
+        return None, out
+    tmp = f"{out}.{os.getpid()}.tmp"
+    proc = subprocess.Popen(compile_command(name, tmp, extra),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return proc, out
+
+
+def finish_build(proc, out: str) -> str:
+    """Wait for a build from start_build; returns nvcc's output."""
+    if proc is None:
+        return ""
+    log, _ = proc.communicate()
+    tmp = proc.args[proc.args.index("-o") + 1]
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {out}:\n{log}")
+    os.replace(tmp, out)
+    return log
+
+
+def build_all(extra=()) -> dict:
+    """Build every source at once (one nvcc per source, all started
+    together); returns {name: nvcc output}."""
+    started = {n: start_build(n, extra) for n in SIGNATURES}
+    return {n: finish_build(*started[n]) for n in started}
+
+
+def bind(path: str, name: str):
+    lib = ctypes.CDLL(path)
+    for fn, argtypes, restype in SIGNATURES[name]:
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = restype
+    return lib
+
+
+def lib(name: str):
+    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    with _LOCK:
+        if name not in _LIBS:
+            proc, out = start_build(name)
+            finish_build(proc, out)
+            _LIBS[name] = bind(out, name)
+        return _LIBS[name]
+
+
+def check(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc}")

@@ -1,0 +1,73 @@
+"""The port's SLAM loop end to end on the CPU, at the tiny budget of
+tests/test_e2e.py (48x64 frames, 7 frames, <= 12 iterations), through the
+port's own entry point.  ATE below 0.5 m as test_e2e.py requires; the
+slow companion runs both packages on the same config and compares ATE."""
+import copy
+import os
+
+import numpy as np
+import pytest
+import torch
+import yaml
+
+from tests.test_e2e import tiny_cfg
+
+
+@pytest.fixture(autouse=True)
+def _torch_threads():
+    """Two torch threads per test: the suite runs in several processes at
+    once, and torch's default of one thread per core oversubscribes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _write_cfg(tmp_path, cfg) -> str:
+    path = tmp_path / "tiny.yaml"
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return str(path)
+
+
+def _run_port(tmp_path):
+    from hpslam_tpu_torch import run as R
+    torch.manual_seed(0)
+    cfg = tiny_cfg(tmp_path)
+    path = _write_cfg(tmp_path, cfg)
+    out = str(tmp_path / "port_out")
+    results, summary = R.run([path, "--output", out, "--device", "cpu"])
+    return results, summary, out
+
+
+def test_port_runs_tiny_synthetic_on_cpu(tmp_path):
+    results, summary, out = _run_port(tmp_path)
+    rmse = results["absolute_translational_error.rmse"]
+    assert np.isfinite(rmse) and rmse < 0.5, rmse
+    assert summary["n_frames"] == 7 and summary["map_ms_mean"] > 0
+    assert os.path.exists(os.path.join(out, "final_point_cloud.ply"))
+    assert any(f.endswith(".ckpt")
+               for f in os.listdir(os.path.join(out, "ckpts")))
+    from hpslam_tpu_torch.utils.logger import (latest_checkpoint,
+                                               load_checkpoint)
+    state = load_checkpoint(latest_checkpoint(out))
+    assert state["levels"]["fine"]["count"] > 0
+    assert state["decoder_params"]["col_fine"]["core"]["out"]["w"].shape \
+        == (128, 3)
+
+
+@pytest.mark.slow
+def test_port_and_reference_ate_agree(tmp_path):
+    from hpslam_tpu.slam import PointSLAM
+    cfg = tiny_cfg(tmp_path)
+    cfg["data"]["output"] = str(tmp_path / "ref_out")
+    ref, _ = PointSLAM(copy.deepcopy(cfg)).run()
+    port, _, _ = _run_port(tmp_path)
+    a = port["absolute_translational_error.rmse"]
+    b = ref["absolute_translational_error.rmse"]
+    # the tiny budget is noise-dominated (different random streams);
+    # the port must stay within the reference's scale
+    assert a < max(2.0 * b, b + 0.05), (a, b)
