@@ -10,10 +10,12 @@ Phases, each printed as one JSON line when it starts and when it ends:
   topk     row-top-k kernel against its plain version, bitwise, at the main
            path's shapes; kernel / plain / torch.topk times
   maploss  mapping-loss kernel pair against the plain version (autograd)
-           at the mapping operating point; kernel / plain times
+           at bench.py's operating point (10000 rays) and the SLAM run's
+           (4000 rays); kernel / plain times
   slam     the port's CLI entry point on configs/Synthetic/synth_tpu.yaml,
            cut to 10 frames, output in a temporary directory; ATE, per-frame
-           times and every kernel's launches during the run
+           times and every kernel's launches during the run (with
+           --profile the run is repeated under torch.profiler)
   kernels  one JSON line describing every ported kernel
 
 The last line is {"ok": true, "device": {...}}, printed only when every
@@ -165,7 +167,9 @@ def run_topk(results: dict) -> dict:
         plain = cuda_time_ms(lambda: K.topk_rows_plain(x, p, k), iters=5)
         lib = cuda_time_ms(lambda: torch.topk(x, k, dim=1, largest=False))
         n, C = x.shape
-        nbytes = 4 * n * C * (2 if p is not None else 1) + 8 * n * k
+        # the rows read once, the k selected payload values per row, the
+        # (n, k) values and indices written once
+        nbytes = 4 * n * C + 4 * n * k * (p is not None) + 8 * n * k
         b, by = bound_ms(nbytes, float(n) * C * k)
         rows.append({"case": name, "shape": [n, C], "k": k, "ms": ms,
                      "plain_ms": plain, "library_ms": lib, "bound_ms": b,
@@ -219,29 +223,41 @@ def maploss_inputs(torch, dev, with_color: bool, n=10000, S=5, u=8):
                         C=C, coef=0.1), mcfg=mcfg)
 
 
-def maploss_work(mcfg, n, S, u, with_color, backward):
-    """(bytes, flops) the function must move / do at this shape."""
+def maploss_work(mcfg, n, S, u, with_color, backward, geo_numel,
+                 col_numel):
+    """(bytes, flops) the function must move / do at this shape.
+
+    Per sample the forward runs the union mix and both trunks.  The
+    backward adds, per trunk, the cotangents the inputs that are
+    differentiated need: the output layer, the hidden part of every later
+    block's input and the feature injections (the embedding is not
+    differentiated, so the first block's input product and the skip
+    block's embedding part are left out); and, with colour, the colour
+    core's weight gradients (one product per weight, as in the forward)
+    and the union-mix backward."""
     C = mcfg.c_dim
+    nb, skip = mcfg.n_blocks, mcfg.skip
 
     def trunk_flops(emb, hid, nout):
-        nb, skip = mcfg.n_blocks, mcfg.skip
         ins = [emb if i == 0 else (hid + emb if i == skip + 1 else hid)
                for i in range(nb)]
-        return 2 * (sum(ins) * hid + nb * C * hid + hid * nout)
+        fwd = 2 * (sum(ins) * hid + nb * C * hid + hid * nout)
+        cot = 2 * (hid * nout + (nb - 1) * hid * hid + nb * C * hid)
+        return fwd, cot
 
-    fg = trunk_flops(mcfg.geo_embed, mcfg.hidden_geo, 1)
-    fc = trunk_flops(2 * mcfg.col_embed, mcfg.hidden_col, 3) \
-        if with_color else 0
+    fg, cg = trunk_flops(mcfg.geo_embed, mcfg.hidden_geo, 1)
+    fc, cc = (trunk_flops(2 * mcfg.col_embed, mcfg.hidden_col, 3)
+              if with_color else (0, 0))
     mix = 2 * u * C * (2 if with_color else 1)
     per = fg + fc + mix
     if backward:
-        # input cotangents (same products as forward) + colour weight grads
-        per += fg + 2 * fc + mix
+        per += cg + cc + fc + mix
     D = 5 * S + 7 + S * u + u
     fs = 2 * C if with_color else C
-    nbytes = 4 * n * (D + u * fs + 1 + 12)
+    weights = geo_numel + (col_numel if with_color else 0)
+    nbytes = 4 * (n * (D + u * fs + 1 + 12) + weights)
     if backward:
-        nbytes += 4 * n * (u * fs + 12)
+        nbytes += 4 * (n * (u * fs + 12) + (col_numel if with_color else 0))
     return nbytes, float(per) * n * S
 
 
@@ -267,8 +283,14 @@ def run_maploss(results: dict) -> dict:
     worst_fwd = worst_bwd = 0.0
     timing = {}
     w_color = 0.1
-    for with_color, use_aff in ((True, False), (True, True), (False, False)):
-        I = maploss_inputs(torch, dev, with_color)
+    # bench.py's operating point (10000 rays) and the smoke's SLAM run
+    # (mapping.pixels = 4000 rays per iteration); the colour stage without
+    # the affine is the one the SLAM run takes, so it goes into the
+    # kernels line
+    for n_rays, with_color, use_aff in (
+            (10000, True, False), (10000, True, True), (10000, False, False),
+            (4000, True, False), (4000, True, True), (4000, False, False)):
+        I = maploss_inputs(torch, dev, with_color, n=n_rays)
         kw = dict(I["kw"], with_color=with_color, sigmoid_rgb=not use_aff,
                   use_affine=use_aff)
 
@@ -337,15 +359,19 @@ def run_maploss(results: dict) -> dict:
                                         I["row"], I["okf"], I["geo"],
                                         I["Bs"], **kw)
         tp2 = cuda_time_ms(plain_fwd, iters=5)
-        b3 = bound_ms(*maploss_work(I["mcfg"], n, S, u, with_color, True))
-        b2 = bound_ms(*maploss_work(I["mcfg"], n, S, u, with_color, False))
+        numel = [sum(t.numel() for t in I[k]) + I["Bs"][i].numel()
+                 for i, k in enumerate(("geo", "col"))]
+        b3 = bound_ms(*maploss_work(I["mcfg"], n, S, u, with_color, True,
+                                    *numel))
+        b2 = bound_ms(*maploss_work(I["mcfg"], n, S, u, with_color, False,
+                                    *numel))
         cases.append({"with_color": with_color, "affine": use_aff, "n": n,
                       "fwd_ms": t2, "fwd_plain_ms": tp2,
                       "fwd_bound_ms": b2[0], "bwd_ms": t3,
                       "bwd_plain_ms": tp3, "bwd_bound_ms": b3[0],
                       "bound_by": b3[1],
                       "grad_rel_fro_max": max(stats.values())})
-        if with_color and not use_aff:
+        if n == 4000 and with_color and not use_aff:
             timing = {"fwd": (t2, tp2, b2), "bwd": (t3, tp3, b3)}
     results["maploss_fwd"] = {
         "max_abs_err": worst_fwd, "ms": timing["fwd"][0],
@@ -362,7 +388,63 @@ def run_maploss(results: dict) -> dict:
             "cases": cases}
 
 
-def run_slam(out_dir: str) -> dict:
+# kernel-name fragments of the device-time groups that --profile reports
+PROFILE_GROUPS = [
+    ("maploss kernels", ("ml_", "wgrad_", "loss_reduce")),
+    ("topk_rows kernel", ("topk_rows",)),
+    ("matmul (cuBLAS)", ("gemm", "sm90_xmma", "cutlass", "gemv", "dot_")),
+    ("index / gather / scatter", ("index", "gather", "scatter")),
+    ("reductions", ("reduce",)),
+    ("sort / unique / scan", ("sort", "radix", "unique", "scan",
+                              "cumsum")),
+    ("elementwise", ("elementwise",)),
+]
+
+
+def profile_run(run_once) -> dict:
+    """Run ``run_once()`` under torch.profiler: wall time, device busy
+    share (summed kernel time over wall time, one stream), device time per
+    group of PROFILE_GROUPS and the 15 costliest kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        summary = run_once()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels: dict = {}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0)
+        kind = getattr(getattr(ev, "device_type", None), "name", "CUDA")
+        if dev_us and dev_us > 0 and kind == "CUDA":
+            us, cnt = kernels.get(ev.key, (0.0, 0))
+            kernels[ev.key] = (us + dev_us, cnt + ev.count)
+    groups: dict = {}
+    for name, (us, _n) in kernels.items():
+        low = name.lower()
+        g = next((g for g, keys in PROFILE_GROUPS
+                  if any(k in low for k in keys)), "other")
+        groups[g] = groups.get(g, 0.0) + us
+    total_s = sum(v[0] for v in kernels.values()) / 1e6
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]
+    return {"wall_s": wall, "device_kernel_s": total_s,
+            "device_busy_share": total_s / wall,
+            "track_ms_mean": summary["track_ms_mean"],
+            "map_ms_mean": summary["map_ms_mean"],
+            "groups_ms": {g: us / 1e3 for g, us in
+                          sorted(groups.items(), key=lambda kv: -kv[1])},
+            "top_kernels": [{"name": n[:90], "ms": us / 1e3, "launches": c}
+                            for n, (us, c) in top]}
+
+
+def run_slam(out_dir: str, profile: bool = False) -> dict:
+    """The 10-frame SLAM run through the port's CLI entry point; with
+    ``profile`` the same run is repeated under torch.profiler (the first
+    run is its warm-up) and its summary returned under "profile"."""
     import torch
     from hpslam_tpu_torch import _cuda
     from hpslam_tpu_torch import run as R
@@ -378,23 +460,30 @@ def run_slam(out_dir: str) -> dict:
                     "verbose: False\n")
         _cuda.reset_launches()
         torch.cuda.synchronize()
-        results, summary = R.run([cfg_path, "--output",
-                                  os.path.join(work, "out"),
-                                  "--input_folder",
-                                  os.path.join(work, "in")])
+        argv = [cfg_path, "--input_folder", os.path.join(work, "in")]
+        results, summary = R.run(argv + ["--output",
+                                         os.path.join(work, "out")])
         torch.cuda.synchronize()
         launches = dict(_cuda.LAUNCHES)
+        prof = (profile_run(lambda: R.run(
+            argv + ["--output", os.path.join(work, "prof")])[1])
+            if profile else None)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     ate = results["absolute_translational_error.rmse"]
     out = {"ate_rmse_m": ate, "track_ms_mean": summary["track_ms_mean"],
            "map_ms_mean": summary["map_ms_mean"],
            "n_frames": summary["n_frames"], "launches": launches}
+    if prof is not None:
+        out["profile"] = prof
     with open(os.path.join(out_dir, "slam_summary.json"), "w") as f:
         json.dump(out, f, indent=1)
     if not ate < ATE_MAX_M:
         raise AssertionError(f"ATE RMSE {ate} m above {ATE_MAX_M} m")
-    for name in ("topk_rows", "maploss_fwd", "maploss_bwd"):
+    # the reference's mapper evaluates the loss only under a gradient, so
+    # kernel 2 (the forward alone) is never launched on this path; it is
+    # held against the plain version in the maploss phase
+    for name in ("topk_rows", "maploss_bwd"):
         if launches.get(name, 0) <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  "main path")
@@ -416,6 +505,9 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=",".join(PHASES))
     ap.add_argument("--out", default=None,
                     help="directory for the full logs (default: none)")
+    ap.add_argument("--profile", action="store_true",
+                    help="repeat the slam phase's run under torch.profiler "
+                         "and report where the device time goes")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     import torch
@@ -454,7 +546,7 @@ def main(argv=None) -> int:
     launches = {}
     if "slam" in phases:
         with phase("slam", seconds):
-            s = run_slam(out_dir)
+            s = run_slam(out_dir, args.profile)
             launches = s["launches"]
             emit(s)
     if "kernels" in phases:

@@ -1,10 +1,7 @@
 """Config system: recursive YAML inheritance + CLI flag overrides.
 
 The port's own copy of hpslam_tpu/config.py (same merge rules and flags,
-plus ``--device``).  YAML is read with PyYAML where it is installed and
-otherwise with ``read_yaml``, a reader for the subset the repository's
-configs use (nested block mappings, flow lists and mappings, scalars,
-comments), so the port needs no package beyond PyTorch, numpy and scipy.
+plus ``--device``).  YAML is read with PyYAML.
 
 Behavioural parity with the reference (src/config.py:10-56 `inherit_from`
 chains, src/Point_SLAM.py:62-139 flag table): a scene yaml inherits a
@@ -15,115 +12,9 @@ from __future__ import annotations
 
 import argparse
 import os
-import re
 from typing import Optional
 
-
-
-# YAML 1.1 plain-scalar resolution as PyYAML applies it (e.g. ``1e20``
-# without a dot stays a string)
-_INT = re.compile(r"^[-+]?(?:0|[1-9][0-9_]*)$")
-_FLOAT = re.compile(r"^(?:[-+]?[0-9][0-9_]*\.[0-9_]*(?:[eE][-+][0-9]+)?"
-                    r"|\.[0-9][0-9_]*(?:[eE][-+][0-9]+)?)$")
-_BOOL = {"true": True, "yes": True, "on": True,
-         "false": False, "no": False, "off": False}
-
-
-def _scalar(tok: str):
-    t = tok.strip()
-    if len(t) >= 2 and t[0] == t[-1] and t[0] in "'\"":
-        return t[1:-1]
-    if t.lower() in _BOOL and t in (t.lower(), t.upper(), t.capitalize()):
-        return _BOOL[t.lower()]
-    if t in ("null", "Null", "NULL", "~", ""):
-        return None
-    if _INT.match(t):
-        return int(t.replace("_", ""))
-    if _FLOAT.match(t):
-        return float(t.replace("_", ""))
-    if t[:1] in "&*!|>-" and t not in ("-",):
-        raise ValueError(f"YAML construct {t!r} needs PyYAML")
-    return t
-
-
-def _flow(s: str, i: int = 0):
-    """Parse a flow value ([..], {..} or a scalar) at s[i:]; returns
-    (value, next index)."""
-    while i < len(s) and s[i] == " ":
-        i += 1
-    if s[i] in "[{":
-        close = "]" if s[i] == "[" else "}"
-        items_l, items_d = [], {}
-        i += 1
-        while True:
-            while s[i] in " ,":
-                i += 1
-            if s[i] == close:
-                return (items_l if close == "]" else items_d), i + 1
-            if close == "]":
-                v, i = _flow(s, i)
-                items_l.append(v)
-            else:
-                j = s.index(":", i)
-                key = _scalar(s[i:j])
-                v, i = _flow(s, j + 1)
-                items_d[key] = v
-    j = i
-    depth = 0
-    while j < len(s) and not (depth == 0 and s[j] in ",]}"):
-        j += 1
-    return _scalar(s[i:j]), j
-
-
-def _strip_comment(line: str) -> str:
-    quote = None
-    for i, ch in enumerate(line):
-        if quote:
-            if ch == quote:
-                quote = None
-        elif ch in "'\"":
-            quote = ch
-        elif ch == "#" and (i == 0 or line[i - 1] in " \t"):
-            return line[:i]
-    return line
-
-
-def read_yaml(text: str) -> dict:
-    """Block-mapping YAML subset: ``key: value`` lines nested by indent,
-    flow ``[..]`` / ``{..}`` values, scalars and ``#`` comments."""
-    root: dict = {}
-    stack = [(-1, root)]
-    for raw in text.splitlines():
-        line = _strip_comment(raw).rstrip()
-        if not line.strip():
-            continue
-        indent = len(line) - len(line.lstrip(" "))
-        body = line.strip()
-        key, sep, rest = body.partition(":")
-        if not sep or body.startswith("- "):
-            raise ValueError(f"YAML line {raw!r} needs PyYAML (only block "
-                             "mappings and flow values are read without "
-                             "it)")
-        while stack[-1][0] >= indent:
-            stack.pop()
-        node = stack[-1][1]
-        key = _scalar(key)
-        rest = rest.strip()
-        if rest == "":
-            child: dict = {}
-            node[key] = child
-            stack.append((indent, child))
-        else:
-            node[key] = _flow(rest)[0]
-    return root
-
-
-def _load_yaml(f) -> dict:
-    try:
-        import yaml
-    except ImportError:
-        return read_yaml(f.read())
-    return yaml.safe_load(f)
+import yaml
 
 
 def update_recursive(dst: dict, src: dict) -> dict:
@@ -143,7 +34,7 @@ def update_recursive(dst: dict, src: dict) -> dict:
 def load_config(path: str, default_path: Optional[str] = None) -> dict:
     """Load a config file, following its ``inherit_from`` chain."""
     with open(path, "r") as f:
-        cfg_special = _load_yaml(f)
+        cfg_special = yaml.safe_load(f)
 
     inherit_from = cfg_special.get("inherit_from")
     if inherit_from is not None:
@@ -156,7 +47,7 @@ def load_config(path: str, default_path: Optional[str] = None) -> dict:
         cfg = load_config(inherit_from, default_path)
     elif default_path is not None and os.path.abspath(default_path) != os.path.abspath(path):
         with open(default_path, "r") as f:
-            cfg = _load_yaml(f)
+            cfg = yaml.safe_load(f)
     else:
         cfg = {}
     update_recursive(cfg, cfg_special)

@@ -6,10 +6,7 @@ one kNN search, interpolation weights, per-ray top-u union), a compaction
 of the scene to the rows the cache can touch, and ``map_scan``: the
 level's geometry-then-colour iterations, each one call of the mapping-loss
 kernel (``ops.fused_mlp.nicer_fused_maploss``, kernel #3 under autograd)
-plus the feature-row gather, its index_add_ backward and Adam.  After each
-level's iterations the loss at the final parameters is evaluated once
-without a gradient (kernel #2) and reported as ``geo_loss_final`` /
-``color_loss_final``.
+plus the feature-row gather, its index_add_ backward and Adam.
 
 Not ported (raise NotImplementedError): bundle adjustment (mapping.BA with
 more than four keyframes), the per-sample (non-union) mapping path that
@@ -199,8 +196,7 @@ def map_scan(params, mcfg: Dec.ModelConfig, rcfg: RenderConfig, opt_params,
     opt_params: {'feat' (U, 2C) packed [geo | col] table, optional 'dec'
     (the level's colour decoder tree), optional 'expo_feat'}.
     lr_table: (n_iters, 4) per-iteration LRs [decoders, geo, col, BA].
-    Returns (opt_params, opt_state, losses (n_iters, 2) [geo, color],
-    final (geo, color) losses evaluated without a gradient)."""
+    Returns (opt_params, opt_state, losses (n_iters, 2) [geo, color])."""
     dev = cache_packed.device
     use_fused_loss = mcfg.fused_composite and Dec.fused_usable(mcfg)
     if not use_fused_loss:
@@ -289,15 +285,9 @@ def map_scan(params, mcfg: Dec.ModelConfig, rcfg: RenderConfig, opt_params,
         op, ost = Opt.update(gtree, ost, Opt.tree_map(torch.detach, opg),
                              lr_tree_for(lr_table[it]))
         losses.append(torch.stack([gl.detach(), cl.detach()]))
-    final = (torch.zeros(()), torch.zeros(()))
-    if n_iters:
-        with torch.no_grad():
-            slot = torch.randint(0, P, (n_rays,), generator=gen, device=dev)
-            _, fg, fc = stage_loss(op, slot, n_iters > geo_iters)
-            final = (fg, fc)
     loss_t = (torch.stack(losses) if losses
               else torch.zeros((0, 2), device=dev))
-    return op, ost, loss_t, final
+    return op, ost, loss_t
 
 
 def build_schedule(n_joint: int, mid_ratio: float, geo_ratio: float,
@@ -584,7 +574,7 @@ class Mapper:
         n_rays = self.mapping_pixels
         new_params = dict(params)
         new_expo = exposure_feat
-        losses_all, finals = [], {}
+        losses_all = []
         shared_t = None
         P = int(self.cfg["mapping"].get(
             "pixels_knn_cache", max(2000, 4 * (n_rays // max(1, F_actual)))))
@@ -630,7 +620,7 @@ class Mapper:
                 if "expo_feat" in ostate["m"] and "m_expo" in shared_t:
                     ostate["m"]["expo_feat"] = shared_t["m_expo"]
                     ostate["v"]["expo_feat"] = shared_t["v_expo"]
-            opt_params, ostate, losses, final = map_scan(
+            opt_params, ostate, losses = map_scan(
                 new_params, slam.mcfg, self.rcfg, opt_params, ostate,
                 self.gen, depths, cache_pix, packed, u_max, expo_t,
                 lr_table, F_actual, level, n_rays, n_geo, self.use_exposure,
@@ -647,20 +637,16 @@ class Mapper:
                 shared_t["m_expo"] = ostate["m"]["expo_feat"]
                 shared_t["v_expo"] = ostate["v"]["expo_feat"]
             losses_all.append(losses.cpu().numpy())
-            finals[level] = (float(final[0]), float(final[1]))
 
         self.prev_c2w = c2w
         loss_np = (np.concatenate(losses_all, axis=0) if losses_all
                    else np.zeros((1, 2)))
         step = max(1, loss_np.shape[0] // 120)
-        last = finals.get("fine", finals.get("mid", (0.0, 0.0)))
         info = {
             "frame_pts_add": frame_pts_add,
             "n_joint_iters": int(n_joint),
             "geo_loss_last": float(loss_np[-1, 0]),
             "color_loss_last": float(loss_np[-1, 1]),
-            "geo_loss_final": last[0],
-            "color_loss_final": last[1],
             "geo_loss_curve": loss_np[::step, 0].round(3).tolist(),
             "color_loss_curve": loss_np[::step, 1].round(3).tolist(),
             "window": window,

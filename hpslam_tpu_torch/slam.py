@@ -152,8 +152,6 @@ class PointSLAM:
             "event": "map", "idx": idx, "time_s": dt,
             "pts": self.npc.pts_num(), "geo_loss": info["geo_loss_last"],
             "color_loss": info["color_loss_last"],
-            "geo_loss_final": info["geo_loss_final"],
-            "color_loss_final": info["color_loss_final"],
             "iters": info["n_joint_iters"]})
         if not (self.cfg["mapping"]["no_vis_on_first_frame"] and idx == 0):
             self.mapper_vis.vis(idx)

@@ -273,7 +273,7 @@ def test_map_scan_stage_reduces_loss(rng):
           "dec": tOpt.tree_map(torch.clone, params["col_fine"])}
     n_it = 30
     lr = np.tile(np.array([[0.005, 0.03, 0.02, 0.0]], np.float32), (n_it, 1))
-    op, ost, losses, final = tM.map_scan(
+    op, ost, losses = tM.map_scan(
         params, cfg, rcfg, op, tOpt.init(op), torch.Generator().manual_seed(1),
         depths, cp, packed, u, torch.zeros((F, 8)), lr, F, "fine", 256, 10,
         False, True, 0.1)
@@ -281,7 +281,7 @@ def test_map_scan_stage_reduces_loss(rng):
     assert np.isfinite(losses).all() and ost["t"] == n_it
     assert losses[9, 0] < losses[0, 0]
     assert losses[-1, 1] < losses[10, 1]
-    assert np.isfinite(float(final[0])) and float(final[1]) > 0
+    assert losses[-1, 1] > 0
     # the colour decoder moved; frozen leaves did not
     assert not torch.equal(op["dec"]["core"]["out"]["w"],
                            params["col_fine"]["core"]["out"]["w"])
