@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                  # every phase, one card
     python3 chip_smoke.py --phases device,build,topk,maploss
+    python3 chip_smoke.py --phases device,build,trunks,trackloss
 
 Phases, each printed as one JSON line when it starts and when it ends:
   device   nvidia-smi's name and power limit, torch's device name
@@ -12,10 +13,20 @@ Phases, each printed as one JSON line when it starts and when it ends:
   maploss  mapping-loss kernel pair against the plain version (autograd)
            at bench.py's operating point (10000 rays) and the SLAM run's
            (4000 rays); kernel / plain times
+  trunks   fused-trunk kernel pair through its autograd wrapper against
+           fused_trunks_plain(_bwd) at the fused-trunk mapping path's shape
+           (4000 rays x 5 samples): colour, geometry only, and with the
+           position cotangent; kernel / plain times
+  trackloss  fused tracker-render kernel pair against trackloss_plain
+           (autograd) at the tracker's 2000 rays: sigmoid tail, exposure
+           affine, exp weighting; kernel / plain times
   slam     the port's CLI entry point on configs/Synthetic/synth_tpu.yaml,
            cut to 10 frames, output in a temporary directory; ATE, per-frame
            times and every kernel's launches during the run (with
-           --profile the run is repeated under torch.profiler)
+           --profile each SLAM run is repeated under torch.profiler)
+  slam_fused  the same run with tracking.fused_loss on and
+           model.fused_composite off: the fused tracker render and union
+           mapping on the fused trunks
   kernels  one JSON line describing every ported kernel
 
 The last line is {"ok": true, "device": {...}}, printed only when every
@@ -35,7 +46,8 @@ import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PHASES = ["device", "build", "topk", "maploss", "slam", "kernels"]
+PHASES = ["device", "build", "topk", "maploss", "trunks", "trackloss",
+          "slam", "slam_fused", "kernels"]
 
 # H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -47,6 +59,14 @@ LOSS_RTOL = 1e-4                # f32 sums of 1e4 per-ray terms, other order
 GRAD_REL_FRO = 1e-4             # ||kernel - plain|| / ||plain|| per tensor
 GRAD_ELEM_TOL = 1e-3            # |kernel - plain| <= tol * max|plain| ...
 GRAD_ELEM_FRAC = 1e-4           # ... for all but this fraction of elements
+# d rays of the tracker render: the distance weight 1/(d^2+1e-10) enters
+# through its square, so f32 rounding is amplified by the inputs'
+# conditioning; the kernel and the f32 plain version are both held against
+# the plain version in float64, the kernel to within this factor of the
+# f32 plain version's own distance, in Frobenius norm (or GRAD_REL_FRO, if
+# larger) and entry by entry against the plain version's largest error on
+# the same ray (plus GRAD_ELEM_TOL of the largest entry; check_drays)
+COND_FACTOR = 2.0
 ATE_MAX_M = 0.05
 
 
@@ -223,6 +243,23 @@ def maploss_inputs(torch, dev, with_color: bool, n=10000, S=5, u=8):
                         C=C, coef=0.1), mcfg=mcfg)
 
 
+def trunk_flops(mcfg, emb, hid, nout, with_embed_cot: bool):
+    """(forward, cotangent) flops per sample of one trunk, counted as
+    maploss_work counts them: every dense product of the forward; for the
+    cotangents the output layer, the hidden part of every later block's
+    input and the feature injections, plus, with with_embed_cot, the
+    embedding's own cotangent (the first block's input product and the
+    skip block's embedding part) and its projection back to the point."""
+    C, nb, skip = mcfg.c_dim, mcfg.n_blocks, mcfg.skip
+    ins = [emb if i == 0 else (hid + emb if i == skip + 1 else hid)
+           for i in range(nb)]
+    fwd = 2 * (sum(ins) * hid + nb * C * hid + hid * nout)
+    cot = 2 * (hid * nout + (nb - 1) * hid * hid + nb * C * hid)
+    if with_embed_cot:
+        cot += 2 * (2 * emb * hid + 3 * emb)
+    return fwd, cot
+
+
 def maploss_work(mcfg, n, S, u, with_color, backward, geo_numel,
                  col_numel):
     """(bytes, flops) the function must move / do at this shape.
@@ -236,18 +273,9 @@ def maploss_work(mcfg, n, S, u, with_color, backward, geo_numel,
     core's weight gradients (one product per weight, as in the forward)
     and the union-mix backward."""
     C = mcfg.c_dim
-    nb, skip = mcfg.n_blocks, mcfg.skip
-
-    def trunk_flops(emb, hid, nout):
-        ins = [emb if i == 0 else (hid + emb if i == skip + 1 else hid)
-               for i in range(nb)]
-        fwd = 2 * (sum(ins) * hid + nb * C * hid + hid * nout)
-        cot = 2 * (hid * nout + (nb - 1) * hid * hid + nb * C * hid)
-        return fwd, cot
-
-    fg, cg = trunk_flops(mcfg.geo_embed, mcfg.hidden_geo, 1)
-    fc, cc = (trunk_flops(2 * mcfg.col_embed, mcfg.hidden_col, 3)
-              if with_color else (0, 0))
+    fg, cg = trunk_flops(mcfg, mcfg.geo_embed, mcfg.hidden_geo, 1, False)
+    fc, cc = (trunk_flops(mcfg, 2 * mcfg.col_embed, mcfg.hidden_col, 3,
+                          False) if with_color else (0, 0))
     mix = 2 * u * C * (2 if with_color else 1)
     per = fg + fc + mix
     if backward:
@@ -261,7 +289,7 @@ def maploss_work(mcfg, n, S, u, with_color, backward, geo_numel,
     return nbytes, float(per) * n * S
 
 
-def compare_grads(name, k, p):
+def compare_grads(name, k, p, what="maploss"):
     import torch
     diff = (k - p).abs()
     scale = float(p.abs().max())
@@ -269,7 +297,7 @@ def compare_grads(name, k, p):
                                                 1e-30))
     frac = float((diff > GRAD_ELEM_TOL * scale + 1e-12).float().mean())
     if fro > GRAD_REL_FRO or frac > GRAD_ELEM_FRAC:
-        raise AssertionError(f"maploss {name}: rel fro {fro:.3g}, "
+        raise AssertionError(f"{what} {name}: rel fro {fro:.3g}, "
                              f"fraction off {frac:.3g}")
     return float(diff.max()), fro
 
@@ -388,9 +416,364 @@ def run_maploss(results: dict) -> dict:
             "cases": cases}
 
 
+def trunks_work(mcfg, n, with_color, backward, need_dp, need_wgrads,
+                geo_numel, col_numel):
+    """(bytes, flops) of kernel #4 (forward) or #5 (backward: the forward
+    recomputed, the cotangents, with need_wgrads the colour core's weight
+    gradients) on n samples."""
+    C = mcfg.c_dim
+    fg, cg = trunk_flops(mcfg, mcfg.geo_embed, mcfg.hidden_geo, 1, need_dp)
+    fc, cc = (trunk_flops(mcfg, 2 * mcfg.col_embed, mcfg.hidden_col, 3,
+                          need_dp) if with_color else (0, 0))
+    per = fg + fc
+    nbytes = 4 * (n * (3 + C * (2 if with_color else 1)) + geo_numel
+                  + (col_numel if with_color else 0))
+    if not backward:
+        return nbytes + 4 * n * 4, float(per) * n
+    per += cg + cc + (fc if need_wgrads and with_color else 0)
+    nbytes += 4 * n * 4                               # g_occ, g_rgb
+    nbytes += 4 * n * (3 * need_dp + C * (2 if with_color else 1))
+    nbytes += 4 * (col_numel if need_wgrads and with_color else 0)
+    return nbytes, float(per) * n
+
+
+def trunks_inputs(torch, dev, n=20000):
+    """The fused-trunk mapping path's shape (mapping.pixels 4000 rays x
+    N_surface 5 samples) at the full model width, random weights from a
+    seed, sample positions at room scale (1-3 m)."""
+    from hpslam_tpu_torch.models import decoder as Dec
+    from hpslam_tpu_torch.ops import fused_mlp as FM
+    mcfg = Dec.ModelConfig()
+    g = torch.Generator(device=dev).manual_seed(2)
+    params = Dec.init_nicer(g, mcfg, dev)
+    C = mcfg.c_dim
+    rd = torch.randn((n, 3), generator=g, device=dev)
+    p = rd * (1.0 + 2.0 * torch.rand((n, 1), generator=g, device=dev))
+    gd, cd = params["geo_fine"], params["col_fine"]
+    return dict(
+        mcfg=mcfg, p=p.contiguous(),
+        cg=(0.1 * torch.randn((n, C), generator=g, device=dev)),
+        cc=(0.1 * torch.randn((n, C), generator=g, device=dev)),
+        g_occ=torch.randn((n,), generator=g, device=dev),
+        g_rgb=torch.randn((n, 3), generator=g, device=dev),
+        geo=[w.contiguous() for w in FM.flatten_core(gd["core"])],
+        col=[w.contiguous() for w in FM.flatten_core(cd["core"])],
+        Bs=(gd["B"].contiguous(), cd["B"].contiguous()))
+
+
+def trunks_via_wrapper(I, with_color, need_dp):
+    """Kernels #4-5 through the autograd wrapper the mapping path calls
+    (nicer_fused_color / nicer_fused_geo), every input requiring grad:
+    (occ, rgb, p.grad, c_geo.grad, c_col.grad, colour-core weight grads).
+    The geometry core must get no gradient."""
+    import torch
+    from hpslam_tpu_torch.ops import fused_mlp as FM
+    mcfg = I["mcfg"]
+    p = I["p"].clone().requires_grad_()
+    cg = I["cg"].clone().requires_grad_()
+    cc = I["cc"].clone().requires_grad_()
+    geo = [w.clone().requires_grad_() for w in I["geo"]]
+    col = [w.clone().requires_grad_() for w in I["col"]]
+    if with_color:
+        occ, rgb = FM.nicer_fused_color(p, cg, cc, geo, col, I["Bs"],
+                                        mcfg.n_blocks, mcfg.skip,
+                                        need_dp=need_dp, need_wgrads=True)
+        torch.autograd.backward([occ, rgb], [I["g_occ"], I["g_rgb"]])
+    else:
+        occ = FM.nicer_fused_geo(p, cg, geo, I["Bs"][0], mcfg.n_blocks,
+                                 mcfg.skip, need_dp=need_dp)
+        occ.backward(I["g_occ"])
+        rgb = None
+    if any(w.grad is not None for w in geo):
+        raise AssertionError("trunks: the geometry core got a gradient")
+    if not with_color and (cc.grad is not None
+                           or any(w.grad is not None for w in col)):
+        raise AssertionError("trunks: geometry only, colour got a gradient")
+    return (occ.detach(), None if rgb is None else rgb.detach(), p.grad,
+            cg.grad, cc.grad, [w.grad for w in col])
+
+
+def run_trunks(results: dict) -> dict:
+    """Kernels #4-5 through their autograd wrapper against
+    fused_trunks_plain / fused_trunks_plain_bwd: colour with the weight
+    gradients (the mapping path's colour stages), geometry only (its
+    geometry stages), and colour with the position cotangent (need_dp, the
+    bundle-adjustment form).  The bare launcher is timed."""
+    import torch
+    from hpslam_tpu_torch.ops import fused_mlp as FM
+    dev = torch.device("cuda")
+    I = trunks_inputs(torch, dev)
+    mcfg = I["mcfg"]
+    cases = []
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for with_color, need_dp in ((True, False), (False, False), (True, True)):
+        col = I["col"] if with_color else []
+        args = (I["p"], I["cg"], I["cc"] if with_color else None, I["Bs"],
+                I["geo"], col, mcfg.n_blocks, mcfg.skip, with_color)
+        wg = with_color
+        occ, rgb, dp, dcg, dcc, dcol = trunks_via_wrapper(I, with_color,
+                                                          need_dp)
+        occ0, rgb0 = FM.fused_trunks_plain(*args)
+        bwd0 = FM.fused_trunks_plain_bwd(*args[:6], I["g_occ"], I["g_rgb"],
+                                         *args[6:], need_dp, wg)
+        torch.cuda.synchronize()
+        stats = {}
+        pairs = [("occ", occ, occ0, "fwd")]
+        if with_color:
+            pairs.append(("rgb", rgb, rgb0, "fwd"))
+        pairs.append(("dcg", dcg, bwd0[1], "bwd"))
+        if need_dp:
+            pairs.append(("dp", dp, bwd0[0], "bwd"))
+        elif dp is not None and dp.any():
+            raise AssertionError("trunks: dp must be zero without need_dp")
+        if with_color:
+            pairs.append(("dcc", dcc, bwd0[2], "bwd"))
+            pairs += [(f"dcol{i}", a, b, "bwd")
+                      for i, (a, b) in enumerate(zip(dcol, bwd0[3]))]
+        for name, a, b, which in pairs:
+            mx, fro = compare_grads(name, a, b, "trunks")
+            worst[which] = max(worst[which], mx)
+            stats[name] = fro
+        t_f = cuda_time_ms(lambda: FM.launch_trunks(*args, backward=False))
+        t_b = cuda_time_ms(lambda: FM.launch_trunks(
+            *args, backward=True, g_occ=I["g_occ"], g_rgb=I["g_rgb"],
+            need_dp=need_dp, need_wgrads=wg), iters=10)
+        tp_f = cuda_time_ms(lambda: FM.fused_trunks_plain(*args), iters=10)
+        tp_b = cuda_time_ms(lambda: FM.fused_trunks_plain_bwd(
+            *args[:6], I["g_occ"], I["g_rgb"], *args[6:], need_dp, wg),
+            iters=5)
+        numel = [sum(t.numel() for t in I["geo"]) + I["Bs"][0].numel(),
+                 sum(t.numel() for t in I["col"]) + I["Bs"][1].numel()]
+        n = I["p"].shape[0]
+        b_f = bound_ms(*trunks_work(mcfg, n, with_color, False, False, False,
+                                    *numel))
+        b_b = bound_ms(*trunks_work(mcfg, n, with_color, True, need_dp, wg,
+                                    *numel))
+        case = {"with_color": with_color, "need_dp": need_dp, "n": n,
+                "fwd_ms": t_f, "fwd_plain_ms": tp_f, "fwd_bound_ms": b_f[0],
+                "bwd_ms": t_b, "bwd_plain_ms": tp_b, "bwd_bound_ms": b_b[0],
+                "bound_by": b_b[1], "rel_fro_max": max(stats.values())}
+        cases.append(case)
+        if with_color and not need_dp:
+            main = (case, b_f, b_b)
+    case, b_f, b_b = main
+    results["trunks_fwd"] = {
+        "max_abs_err": worst["fwd"], "ms": case["fwd_ms"],
+        "plain_ms": case["fwd_plain_ms"], "bound_ms": b_f[0],
+        "bound_by": b_f[1], "library_ms": None}
+    results["trunks_bwd"] = {
+        "max_abs_err": worst["bwd"], "ms": case["bwd_ms"],
+        "plain_ms": case["bwd_plain_ms"], "bound_ms": b_b[0],
+        "bound_by": b_b[1], "library_ms": None}
+    return {"tolerance": {"grad_rel_fro": GRAD_REL_FRO,
+                          "grad_elem": [GRAD_ELEM_TOL, GRAD_ELEM_FRAC]},
+            "cases": cases}
+
+
+def trackloss_work(mcfg, n, S, K, backward, geo_numel, col_numel):
+    """(bytes, flops) of kernel #8 (forward) or #9 (backward: the forward
+    recomputed, the compositor and tail backward, both trunk backwards with
+    the embedding cotangents, the weight route) on n rays of S samples."""
+    C = mcfg.c_dim
+    fg, cg = trunk_flops(mcfg, mcfg.geo_embed, mcfg.hidden_geo, 1, True)
+    fc, cc = trunk_flops(mcfg, 2 * mcfg.col_embed, mcfg.hidden_col, 3, True)
+    mix = 2 * K * 2 * C + 10 * K            # feature mix + weights
+    per = fg + fc + mix
+    Dr = 2 * S + 6 + 3 * S * K
+    nbytes = 4 * (n * (6 + Dr + S * K * 2 * C + 12) + geo_numel + col_numel)
+    if not backward:
+        return nbytes + 4 * n * 5, float(per) * n * S
+    per += cg + cc + 2 * K * 2 * C + 12 * K  # cotangents + weight route
+    return nbytes + 4 * n * 4 + 4 * n * 18, float(per) * n * S
+
+
+def trackloss_inputs(torch, dev, n=2000, S=5, K=8, r=0.3):
+    """The tracker's operating point (tracking.pixels 2000 rays, N_surface
+    5, nn_num 8) at the full model width: rays toward a wall at ~2 m, K
+    cached neighbours per sample between 1e-2 and 1.2 r away (some outside
+    the radius, one padded slot at the 1e6 sentinel), `has` from those
+    distances."""
+    from hpslam_tpu_torch.models import decoder as Dec
+    from hpslam_tpu_torch.ops import fused_mlp as FM
+    mcfg = Dec.ModelConfig()
+    C = mcfg.c_dim
+    g = torch.Generator(device=dev).manual_seed(3)
+    params = Dec.init_nicer(g, mcfg, dev)
+    ro = 0.05 * torch.randn((n, 3), generator=g, device=dev)
+    rd = torch.cat([torch.rand((n, 2), generator=g, device=dev) - 0.5,
+                    -torch.ones((n, 1), device=dev)], 1)
+    z = (1.8 + 0.4 * torch.rand((n, 1), generator=g, device=dev)) \
+        * torch.linspace(0.96, 1.04, S, device=dev)
+    pts = ro[:, None] + z[..., None] * rd[:, None]
+    u = torch.randn((n, S, K, 3), generator=g, device=dev)
+    u = u / torch.linalg.norm(u, dim=-1, keepdim=True)
+    dist = 1e-2 + (1.2 * r - 1e-2) * torch.rand((n, S, K, 1), generator=g,
+                                                device=dev)
+    cpos = pts[:, :, None] + u * dist
+    cpos[:, :, -1] = 1e6
+    has = (torch.sum(torch.sum((cpos - pts[:, :, None]) ** 2, -1) < r * r,
+                     -1) >= 2).float()
+    rowc = torch.cat([z, z[:, S // 2:S // 2 + 1],
+                      torch.rand((n, 3), generator=g, device=dev),
+                      torch.full((n, 1), r * r, device=dev), has,
+                      torch.ones((n, 1), device=dev), cpos.reshape(n, -1)],
+                     1).contiguous()
+    aff = torch.cat([torch.eye(3, device=dev).reshape(1, 9).repeat(n, 1),
+                     torch.zeros((n, 3), device=dev)], 1) \
+        + 0.05 * torch.randn((n, 12), generator=g, device=dev)
+    gd, cd = params["geo_fine"], params["col_fine"]
+    return dict(
+        mcfg=mcfg, S=S, K=K, rays=torch.cat([ro, rd], 1).contiguous(),
+        rowc=rowc, aff=aff.contiguous(),
+        cfeat=(0.1 * torch.randn((n, S * K * 2 * C), generator=g,
+                                 device=dev)),
+        g_depth=torch.randn((n,), generator=g, device=dev),
+        g_color=torch.randn((n, 3), generator=g, device=dev),
+        geo=[w.contiguous() for w in FM.flatten_core(gd["core"])],
+        col=[w.contiguous() for w in FM.flatten_core(cd["core"])],
+        Bs=(gd["B"].contiguous(), cd["B"].contiguous()))
+
+
+def drays_f64(I, static):
+    """d rays of trackloss_plain evaluated in float64 on the same inputs."""
+    import torch
+    from hpslam_tpu_torch.ops import fused_mlp as FM
+
+    def dbl(ts):
+        return [t.double() for t in ts]
+    r = I["rays"].double().requires_grad_()
+    d, _v, c = FM.trackloss_plain(
+        r, I["aff"].double(), I["rowc"].double(), I["cfeat"].double(),
+        dbl(I["geo"]), dbl(I["col"]), tuple(dbl(I["Bs"])), *static)
+    torch.autograd.backward([d, c], [I["g_depth"].double(),
+                                     I["g_color"].double()])
+    return r.grad
+
+
+def check_drays(I, static, k, p):
+    """d rays of the kernel (k) and of the f32 plain version (p) against
+    the plain version in float64; the f32 plain version's distance measures
+    how far the inputs' conditioning carries f32 rounding.  The kernel is
+    held (1) in relative Frobenius distance to max(GRAD_REL_FRO,
+    COND_FACTOR x the f32 plain version's) and (2) element-wise:
+    |k - f64| <= COND_FACTOR x (the f32 plain version's largest error on
+    the same ray) + GRAD_ELEM_TOL x max|f64|, for all but GRAD_ELEM_FRAC of
+    the entries.  Returns the readings."""
+    import torch
+    p64 = drays_f64(I, static)
+    e_k, e_p = (k.double() - p64).abs(), (p.double() - p64).abs()
+    norm = max(float(torch.linalg.norm(p64)), 1e-30)
+    fro_k = float(torch.linalg.norm(e_k)) / norm
+    fro_p = float(torch.linalg.norm(e_p)) / norm
+    scale = float(p64.abs().max())
+    lim = COND_FACTOR * e_p.amax(1, keepdim=True) + GRAD_ELEM_TOL * scale
+    frac = float((e_k > lim).double().mean())
+    out = {"n": k.shape[0], "rel_fro_kernel": fro_k, "rel_fro_plain_f32":
+           fro_p, "max_abs_f64": scale, "max_err_kernel": float(e_k.max()),
+           "max_err_plain_f32": float(e_p.max()),
+           "worst_err_over_limit": float((e_k / lim).max()),
+           "fraction_off": frac}
+    if fro_k > max(GRAD_REL_FRO, COND_FACTOR * fro_p) \
+            or frac > GRAD_ELEM_FRAC:
+        raise AssertionError(f"trackloss drays: {out}")
+    return out
+
+
+def run_trackloss(results: dict) -> dict:
+    """Kernels #8-9 under autograd (the wrapper) against trackloss_plain
+    differentiated by autograd: the SLAM run's sigmoid tail with distance
+    weights, the exposure affine, and exp weighting."""
+    import torch
+    from hpslam_tpu_torch.ops import fused_mlp as FM
+    dev = torch.device("cuda")
+    I = trackloss_inputs(torch, dev)
+    mcfg, S, K = I["mcfg"], I["S"], I["K"]
+    C = mcfg.c_dim
+    cases = []
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    main = None
+    for use_aff, wmode in ((False, 0), (True, 0), (False, 1)):
+        static = (mcfg.n_blocks, mcfg.skip, S, K, C, 0.1, wmode, use_aff,
+                  not use_aff)
+        consts = (I["rowc"], I["cfeat"], I["geo"], I["col"], I["Bs"])
+
+        def run(fn):
+            r = I["rays"].clone().requires_grad_()
+            a = I["aff"].clone().requires_grad_()
+            d, v, c = fn(r, a, I["rowc"], I["cfeat"], I["geo"], I["col"],
+                         I["Bs"], *static)
+            torch.autograd.backward([d, c], [I["g_depth"], I["g_color"]])
+            return [d.detach(), v.detach(), c.detach(), r.grad,
+                    a.grad if a.grad is not None else torch.zeros_like(a)]
+
+        k, p = run(FM.nicer_fused_trackloss), run(FM.trackloss_plain)
+        torch.cuda.synchronize()
+        stats = {}
+        names = ["depth", "var", "color", "drays", "daff"]
+        for name, a, b in zip(names, k, p):
+            if name == "daff" and not use_aff:
+                if a.any():
+                    raise AssertionError("trackloss: daff must be zero "
+                                         "without the affine")
+                continue
+            if name == "drays":
+                stats["drays_f64"] = check_drays(I, static, a, b)
+                mx = float((a - b).abs().max())
+                fro = float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+            else:
+                mx, fro = compare_grads(name, a, b, "trackloss")
+            which = "bwd" if name.startswith("d") and name != "depth" \
+                else "fwd"
+            worst[which] = max(worst[which], mx)
+            stats[name] = fro
+        kw = dict(zip(("n_blocks", "skip", "S", "K", "C", "coef", "wmode",
+                       "use_affine", "sigmoid_plain"), static))
+        t_f = cuda_time_ms(lambda: FM.launch_trackloss(
+            I["rays"], I["aff"], *consts, backward=False, **kw))
+        t_b = cuda_time_ms(lambda: FM.launch_trackloss(
+            I["rays"], I["aff"], *consts, backward=True,
+            g_depth=I["g_depth"], g_color=I["g_color"], **kw))
+
+        def plain_fwd():
+            with torch.no_grad():
+                return FM.trackloss_plain(I["rays"], I["aff"], *consts,
+                                          *static)
+        tp_f = cuda_time_ms(plain_fwd, iters=10)
+        tp_b = cuda_time_ms(lambda: run(FM.trackloss_plain), iters=5)
+        numel = [sum(t.numel() for t in I["geo"]) + I["Bs"][0].numel(),
+                 sum(t.numel() for t in I["col"]) + I["Bs"][1].numel()]
+        n = I["rays"].shape[0]
+        b_f = bound_ms(*trackloss_work(mcfg, n, S, K, False, *numel))
+        b_b = bound_ms(*trackloss_work(mcfg, n, S, K, True, *numel))
+        case = {"affine": use_aff, "wmode": wmode, "n": n, "fwd_ms": t_f,
+                "fwd_plain_ms": tp_f, "fwd_bound_ms": b_f[0], "bwd_ms": t_b,
+                "bwd_plain_ms": tp_b, "bwd_bound_ms": b_b[0],
+                "bound_by": b_b[1], "drays_vs_float64": stats.pop(
+                    "drays_f64"), "rel_fro_max": max(stats.values())}
+        cases.append(case)
+        if main is None:
+            main = (case, b_f, b_b)
+    case, b_f, b_b = main
+    results["trackloss_fwd"] = {
+        "max_abs_err": worst["fwd"], "ms": case["fwd_ms"],
+        "plain_ms": case["fwd_plain_ms"], "bound_ms": b_f[0],
+        "bound_by": b_f[1], "library_ms": None}
+    results["trackloss_bwd"] = {
+        "max_abs_err": worst["bwd"], "ms": case["bwd_ms"],
+        "plain_ms": case["bwd_plain_ms"], "bound_ms": b_b[0],
+        "bound_by": b_b[1], "library_ms": None}
+    return {"tolerance": {"grad_rel_fro": GRAD_REL_FRO,
+                          "grad_elem": [GRAD_ELEM_TOL, GRAD_ELEM_FRAC],
+                          "drays_vs_float64": COND_FACTOR},
+            "cases": cases}
+
+
 # kernel-name fragments of the device-time groups that --profile reports
 PROFILE_GROUPS = [
-    ("maploss kernels", ("ml_", "wgrad_", "loss_reduce")),
+    ("maploss kernels", ("ml_", "loss_reduce")),
+    ("trunks kernel", ("tr_samples",)),
+    ("trackloss kernels", ("tl_",)),
+    ("weight-gradient passes (kernels 3, 5)", ("wgrad_",)),
     ("topk_rows kernel", ("topk_rows",)),
     ("matmul (cuBLAS)", ("gemm", "sm90_xmma", "cutlass", "gemv", "dot_")),
     ("index / gather / scatter", ("index", "gather", "scatter")),
@@ -441,10 +824,28 @@ def profile_run(run_once) -> dict:
                             for n, (us, c) in top]}
 
 
-def run_slam(out_dir: str, profile: bool = False) -> dict:
-    """The 10-frame SLAM run through the port's CLI entry point; with
-    ``profile`` the same run is repeated under torch.profiler (the first
-    run is its warm-up) and its summary returned under "profile"."""
+# kernels each SLAM run must launch (> 0) or must not launch (== 0)
+SLAM_RUNS = {
+    # the default path: plain tracker, union mapping on the mapping loss;
+    # the reference's mapper evaluates the loss only under a gradient, so
+    # kernel 2 (the forward alone) is never launched on this path; it is
+    # held against the plain version in the maploss phase
+    "slam": ("", ("topk_rows", "maploss_bwd"), ()),
+    # the fused tracker render and union mapping on the fused trunks;
+    # no mapping-loss launch proves that the knob routed the mapper
+    "slam_fused": ("tracking:\n  fused_loss: True\n"
+                   "model:\n  fused_composite: False\n",
+                   ("topk_rows", "trunks_fwd", "trunks_bwd", "trackloss_fwd",
+                    "trackloss_bwd"), ("maploss_bwd", "maploss_fwd")),
+}
+
+
+def run_slam(out_dir: str, name: str = "slam",
+             profile: bool = False) -> dict:
+    """The 10-frame SLAM run through the port's CLI entry point, with the
+    config additions of SLAM_RUNS[name]; with ``profile`` the same run is
+    repeated under torch.profiler (the first run is its warm-up) and its
+    summary returned under "profile"."""
     import torch
     from hpslam_tpu_torch import _cuda
     from hpslam_tpu_torch import run as R
@@ -457,7 +858,7 @@ def run_slam(out_dir: str, profile: bool = False) -> dict:
                     "synthetic:\n  n_frames: 10\n"
                     "tracking:\n  vis_freq: 1000\n"
                     "mapping:\n  vis_freq: 1000\n"
-                    "verbose: False\n")
+                    "verbose: False\n" + SLAM_RUNS[name][0])
         _cuda.reset_launches()
         torch.cuda.synchronize()
         argv = [cfg_path, "--input_folder", os.path.join(work, "in")]
@@ -476,17 +877,19 @@ def run_slam(out_dir: str, profile: bool = False) -> dict:
            "n_frames": summary["n_frames"], "launches": launches}
     if prof is not None:
         out["profile"] = prof
-    with open(os.path.join(out_dir, "slam_summary.json"), "w") as f:
+    with open(os.path.join(out_dir, f"{name}_summary.json"), "w") as f:
         json.dump(out, f, indent=1)
     if not ate < ATE_MAX_M:
         raise AssertionError(f"ATE RMSE {ate} m above {ATE_MAX_M} m")
-    # the reference's mapper evaluates the loss only under a gradient, so
-    # kernel 2 (the forward alone) is never launched on this path; it is
-    # held against the plain version in the maploss phase
-    for name in ("topk_rows", "maploss_bwd"):
-        if launches.get(name, 0) <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the "
-                                 "main path")
+    _cfg, launched, not_launched = SLAM_RUNS[name]
+    for k in launched:
+        if launches.get(k, 0) <= 0:
+            raise AssertionError(f"kernel {k} was not launched on the "
+                                 f"{name} path")
+    for k in not_launched:
+        if launches.get(k, 0) != 0:
+            raise AssertionError(f"kernel {k} was launched on the {name} "
+                                 "path")
     return out
 
 
@@ -497,6 +900,14 @@ KERNELS = [
      "hpslam_tpu/ops/fused_mlp.py:1066"),
     ("maploss_bwd", "hpslam_tpu_torch/csrc/maploss.cu",
      "hpslam_tpu/ops/fused_mlp.py:1098"),
+    ("trunks_fwd", "hpslam_tpu_torch/csrc/trunks.cu",
+     "hpslam_tpu/ops/fused_mlp.py:278"),
+    ("trunks_bwd", "hpslam_tpu_torch/csrc/trunks.cu",
+     "hpslam_tpu/ops/fused_mlp.py:299"),
+    ("trackloss_fwd", "hpslam_tpu_torch/csrc/trackloss.cu",
+     "hpslam_tpu/ops/fused_mlp.py:1565"),
+    ("trackloss_bwd", "hpslam_tpu_torch/csrc/trackloss.cu",
+     "hpslam_tpu/ops/fused_mlp.py:1581"),
 ]
 
 
@@ -506,8 +917,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None,
                     help="directory for the full logs (default: none)")
     ap.add_argument("--profile", action="store_true",
-                    help="repeat the slam phase's run under torch.profiler "
-                         "and report where the device time goes")
+                    help="repeat each SLAM run under torch.profiler and "
+                         "report where the device time goes")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     import torch
@@ -543,12 +954,22 @@ def main(argv=None) -> int:
     if "maploss" in phases:
         with phase("maploss", seconds):
             emit(run_maploss(results))
+    if "trunks" in phases:
+        with phase("trunks", seconds):
+            emit(run_trunks(results))
+    if "trackloss" in phases:
+        with phase("trackloss", seconds):
+            emit(run_trackloss(results))
+    # each kernel's launches come from the first run that launches it
     launches = {}
-    if "slam" in phases:
-        with phase("slam", seconds):
-            s = run_slam(out_dir, args.profile)
-            launches = s["launches"]
-            emit(s)
+    for name in ("slam", "slam_fused"):
+        if name in phases:
+            with phase(name, seconds):
+                s = run_slam(out_dir, name, args.profile)
+                for k, v in s["launches"].items():
+                    if not launches.get(k):
+                        launches[k] = v
+                emit(s)
     if "kernels" in phases:
         with phase("kernels", seconds):
             rows = []

@@ -4,8 +4,9 @@ Each source under ``csrc/`` is compiled by ``nvcc`` into its own shared
 library with a plain C interface and loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds).  Libraries are built on first use into
 ``build/hpslam_tpu_torch/`` at the repository root (or ``$HPSLAM_TORCH_BUILD``),
-which ``.gitignore`` lists; the file name carries a hash of the source and
-the flags, so an edited source is never served by a stale build.
+which ``.gitignore`` lists; the file name carries a hash of the source, of
+every header it includes from ``csrc/`` and of the flags, so an edited
+source or header is never served by a stale build.
 
 Every wrapper counts its kernel launches in ``LAUNCHES`` (one per launch of
 the kernel it wraps, nowhere else), so a run can show that the main path
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -41,6 +43,24 @@ SIGNATURES = {
           _I, _F, _I, _I, _F, _I, _I,            # flags, coef, w_color
           _P, _P, _P, _P, _P, _P, _I,            # scratch .. wsplits
           _P], _I),
+    ],
+    "trunks": [
+        ("hp_trunks_scratch_floats", [_I] * 9, _L),
+        ("hp_trunks",
+         [_P, _P, _P, _P, _P, _P, _P,            # p cg cc Bg Bc gw cw
+          _I, _I, _I, _I, _I, _I, _I, _I,        # n C emb/hid nb skip
+          _I, _I, _I, _I,                        # flags
+          _P, _P, _P, _P, _P, _P, _P, _P,        # g_occ .. dcc
+          _P, _P, _I, _P], _I),                  # dcw wpart wsplits stream
+    ],
+    "trackloss": [
+        ("hp_trackloss_scratch_floats", [_I] * 9, _L),
+        ("hp_trackloss",
+         [_P, _P, _I, _P, _P, _P, _P, _P, _P,    # rays rowc Dr .. gw cw
+          _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,  # n S K C emb/hid nb skip
+          _F, _I, _I, _I, _I,                    # coef, flags
+          _P, _P, _P, _P, _P, _P, _P, _P,        # g_depth .. daff
+          _P], _I),                              # stream
     ],
 }
 
@@ -73,10 +93,28 @@ def nvcc_path() -> str:
                        "CUDA toolkit's nvcc (set CUDA_HOME)")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def sources(name: str) -> list:
+    """``csrc/<name>.cu`` and every header it includes from ``csrc/``,
+    transitively, in first-include order."""
+    out, todo = [], [f"{name}.cu"]
+    while todo:
+        f = todo.pop(0)
+        if f in out:
+            continue
+        out.append(f)
+        with open(os.path.join(_CSRC, f), "rb") as fh:
+            todo += [m.decode() for m in _INCLUDE.findall(fh.read())]
+    return out
+
+
 def lib_path(name: str) -> str:
-    src = os.path.join(_CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        h = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sources(name):
+        with open(os.path.join(_CSRC, f), "rb") as fh:
+            h.update(f.encode() + b"\0" + fh.read())
     return os.path.join(build_dir(), f"lib{name}_{h.hexdigest()[:16]}.so")
 
 

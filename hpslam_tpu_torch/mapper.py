@@ -4,14 +4,17 @@ Per mapped frame: point insertion, then for each level (mid, fine) one
 union neighbour cache over the keyframe window (``build_pixel_union_cache``:
 one kNN search, interpolation weights, per-ray top-u union), a compaction
 of the scene to the rows the cache can touch, and ``map_scan``: the
-level's geometry-then-colour iterations, each one call of the mapping-loss
-kernel (``ops.fused_mlp.nicer_fused_maploss``, kernel #3 under autograd)
-plus the feature-row gather, its index_add_ backward and Adam.
+level's geometry-then-colour iterations.  With ``model.fused_composite``
+(the default) each iteration is one call of the mapping-loss kernel
+(``ops.fused_mlp.nicer_fused_maploss``, kernel #3 under autograd) plus the
+feature-row gather, its index_add_ backward and Adam; without it, the union
+render (``render_union``: union-slot feature mix, the fused trunks of
+kernels #4-5 or the plain trunks, the compositor) and the masked L1 losses
+run as tensor ops around the trunk kernels.
 
 Not ported (raise NotImplementedError): bundle adjustment (mapping.BA with
 more than four keyframes), the per-sample (non-union) mapping path that
-rel-pos encodings need, the fused-trunk render of the union path, and
-multi-device meshes.
+rel-pos encodings need, and multi-device meshes.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import numpy as np
 import torch
 
 from .models import decoder as Dec
+from .ops import composite as Co
 from .ops import fused_mlp as FM
 from .ops import geometry as G
 from .ops import image as IM
@@ -199,10 +203,6 @@ def map_scan(params, mcfg: Dec.ModelConfig, rcfg: RenderConfig, opt_params,
     Returns (opt_params, opt_state, losses (n_iters, 2) [geo, color])."""
     dev = cache_packed.device
     use_fused_loss = mcfg.fused_composite and Dec.fused_usable(mcfg)
-    if not use_fused_loss:
-        raise NotImplementedError(
-            "the union path without the mapping-loss kernel (fused trunks / "
-            "plain render_union) is not ported; see ROADMAP.md")
     n_iters = lr_table.shape[0]
     F_max = depths.shape[0]
     P = cache_pix.shape[1]
@@ -248,17 +248,80 @@ def map_scan(params, mcfg: Dec.ModelConfig, rcfg: RenderConfig, opt_params,
               ).float()
         return oh @ torch.cat([rots.reshape(F_max, 9), transs], dim=1)
 
+    def render_union(col_dec, with_color, row, feat, uids):
+        """Union-cache render without the loss kernel: the union-slot
+        feature mix of the packed row, the trunks (fused where
+        fused_usable; sample positions are phase constants, so no dp),
+        -100 forcing and the compositor.  Returns (depth, color, valid
+        ray)."""
+        n = row.shape[0]
+        z = row[:, o["z"]:o["z"] + S]
+        pts = row[:, o["pts"]:o["pts"] + 3 * S].reshape(n * S, 3)
+        rays_d = row[:, o["rays_d"]:o["rays_d"] + 3]
+        pmf = (row[:, o["pm"]:o["pm"] + S] > 0.5).reshape(-1)
+        Wm = row[:, o["wm"]:o["wm"] + S * u_sz].reshape(n, S, u_sz)
+        c_all = IT.union_gather(feat, uids, Wm).reshape(n * S, -1)
+        c_all = torch.where(pmf[:, None], c_all, 0.0)
+        c_geo = c_all[:, :C]
+        geo_dec = params[f"geo_{level}"]
+        fused = Dec.fused_usable(mcfg)
+        if with_color:
+            if fused:
+                occ, rgb = Dec.fused_color_pair(
+                    geo_dec, col_dec, mcfg, pts, c_geo, c_all[:, C:],
+                    need_dp=False, need_wgrads=opt_color_dec)
+            else:
+                occ = Dec.apply_geo(geo_dec, mcfg, pts, c_geo)
+                views_d = (torch.repeat_interleave(rays_d, S, dim=0)
+                           if mcfg.use_view_direction else None)
+                rgb = Dec.apply_color(col_dec, mcfg, pts, c_all[:, C:],
+                                      views_d=views_d)
+        else:
+            occ = (Dec.fused_geo(geo_dec, mcfg, pts, c_geo, need_dp=False)
+                   if fused else Dec.apply_geo(geo_dec, mcfg, pts, c_geo))
+            rgb = torch.zeros((n * S, 3), device=dev)
+        occ = torch.where(pmf, occ, -100.0)
+        raw = torch.cat([rgb, occ[:, None]], -1).reshape(n, S, 4)
+        depth, _unc, color, _ = Co.raw2outputs(
+            raw, z, rays_d, occupancy=rcfg.occupancy, coef=rcfg.sigmoid_coef)
+        return depth, color, Dec.valid_ray_mask(pmf, S, rcfg.N_surface)
+
+    def plain_stage_loss(op, dec, row, feat, uids, d_gt, inside,
+                         with_color):
+        """The stage loss around render_union: masked L1 depth loss and,
+        on colour stages, the per-frame exposure affine + sigmoid of the
+        composited colour and the masked L1 colour loss."""
+        depth, color, vmask = render_union(dec, with_color, row, feat, uids)
+        mask = (d_gt > 0) & vmask & torch.isfinite(depth) & inside
+        gl = torch.sum(torch.where(mask, torch.abs(d_gt - depth), 0.0))
+        if not with_color:
+            return gl, gl, torch.zeros((), device=dev)
+        if use_exposure:
+            sel = exposure_sel(op, dec)
+            color = torch.sigmoid(torch.einsum(
+                "nc,ncd->nd", color, sel[:, :9].reshape(-1, 3, 3))
+                + sel[:, 9:])
+        c_gt = row[:, o["c_gt"]:o["c_gt"] + 3]
+        cl = torch.sum(torch.where(mask[:, None], torch.abs(c_gt - color),
+                                   0.0))
+        return gl + w_color * cl, gl, cl
+
     def stage_loss(op, slot, with_color):
         row = cache_packed[fid * P + slot]
         d_gt = row[:, o["d_gt"]]
         uids = Knn.unpack_ids(row[:, o["uids"]:o["uids"] + u_sz])
         inside = d_gt <= inside_thresh
         n = row.shape[0]
+        # geometry stages read only the geo half of the feature rows: the
+        # colour columns have zero cotangent there
         feat_v = op["feat"] if with_color else op["feat"][:, :C]
+        dec = col_dec_of(op)
+        if not use_fused_loss:
+            return plain_stage_loss(op, dec, row, feat_v, uids, d_gt, inside,
+                                    with_color)
         uf = IT.gather_rows(feat_v, uids).reshape(n, -1)
         okf = ((d_gt > 0) & inside).float()[:, None]
         use_aff = bool(use_exposure) and with_color
-        dec = col_dec_of(op)
         aff = (exposure_sel(op, dec) if use_aff
                else torch.zeros((n, 12), device=dev))
         col_flat = [w if w.is_contiguous() else w.contiguous()

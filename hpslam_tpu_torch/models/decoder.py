@@ -8,10 +8,10 @@ weights carry over one to one (``convert.py``):
                    optional "exposure": {"l1", "l2"}}
 Weights are (fan_in, fan_out); a layer is x @ w + b.
 
-Only the plain (XLA-path) trunks are here.  The fused trunk kernels of the
-reference (nicer_fused_color / nicer_fused_geo) are not ported yet: a call
-that would reach them raises NotImplementedError.  The mapper's
-whole-iteration loss kernel lives in ops/fused_mlp.py.
+The plain trunks are here; ``fused_geo`` / ``fused_color_pair`` run both
+trunks through the fused trunk kernels of ops/fused_mlp.py
+(``nicer_fused_geo`` / ``nicer_fused_color``), which ``eval_stage`` takes
+where ``fused_usable``.
 """
 from __future__ import annotations
 
@@ -309,23 +309,45 @@ def fused_usable(cfg: ModelConfig, views_d=None, normals=None) -> bool:
             and views_d is None and normals is None)
 
 
-def _fused_trunks_not_ported():
-    raise NotImplementedError(
-        "the fused decoder-trunk kernels (hpslam_tpu/ops/fused_mlp.py "
-        "nicer_fused_color / nicer_fused_geo) are not ported yet; see "
-        "ROADMAP.md.  Set model.fused_mlp: False for the plain trunks.")
+def fused_geo(p_dec: Params, cfg: ModelConfig, p, c_geo,
+              need_dp: bool = True):
+    """apply_geo through the fused trunk kernels (geometry core frozen).
+    need_dp=False skips the embedding backward when the sample positions
+    are constants (mapper union path)."""
+    from ..ops import fused_mlp as FM
+    return FM.nicer_fused_geo(p, c_geo, FM.flatten_core(p_dec["core"]),
+                              p_dec["B"], cfg.n_blocks, cfg.skip, need_dp)
+
+
+def fused_color_pair(geo_dec: Params, col_dec: Params, cfg: ModelConfig,
+                     p, c_geo, c_col, exposure_feat=None,
+                     need_dp: bool = True, need_wgrads: bool = True):
+    """apply_geo + apply_color through one fused trunk kernel pair: (occ
+    (n,), rgb (n, 3)), with apply_color's exposure / sigmoid tail (raw
+    output when the exposure is deferred to the caller)."""
+    from ..ops import fused_mlp as FM
+    occ, out = FM.nicer_fused_color(
+        p, c_geo, c_col, FM.flatten_core(geo_dec["core"]),
+        FM.flatten_core(col_dec["core"]), (geo_dec["B"], col_dec["B"]),
+        cfg.n_blocks, cfg.skip, need_dp, need_wgrads)
+    if cfg.encode_exposure:
+        if exposure_feat is not None:
+            rot, trans = exposure_affine(col_dec, exposure_feat)
+            out = torch.sigmoid(out @ rot + trans)
+    else:
+        out = torch.sigmoid(out)
+    return occ, out
 
 
 def eval_stage(params: Params, cfg: ModelConfig, stage: str, p, D, I,
                geo_feats, col_feats, cloud_pos, r_query, n_pts_per_ray: int,
                is_tracker: bool = False, views_d=None, normals=None,
                exposure_feat=None, cat_feats=None, dense_cache=None):
-    """One render stage at sample positions (plain trunks).  Returns
-    raw (N, 4), valid_ray (N_rays,), point_mask (N,)."""
+    """One render stage at sample positions; the fused trunks where
+    ``fused_usable``, else the plain ones.
+    Returns raw (N, 4), valid_ray (N_rays,), point_mask (N,)."""
     level = "mid" if stage.endswith("_mid") else "fine"
     geo_dec = params[f"geo_{level}"]
-    if fused_usable(cfg, views_d, normals):
-        _fused_trunks_not_ported()
     if dense_cache is not None:
         if not is_tracker or cfg.encode_rel_pos_in_geo \
                 or cfg.encode_rel_pos_in_col:
@@ -343,7 +365,10 @@ def eval_stage(params: Params, cfg: ModelConfig, stage: str, p, D, I,
             c_geo, has = interpolate_level_feats(
                 geo_dec, cfg, p, D, I, geo_feats, cloud_pos, r_query,
                 diff_pos=is_tracker, encode_rel_pos=cfg.encode_rel_pos_in_geo)
-        occ = apply_geo(geo_dec, cfg, p, c_geo)
+        if fused_usable(cfg):
+            occ = fused_geo(geo_dec, cfg, p, c_geo)
+        else:
+            occ = apply_geo(geo_dec, cfg, p, c_geo)
         vmask = valid_ray_mask(has, n_pts_per_ray, cfg.N_surface)
         raw = torch.cat([torch.zeros(p.shape[:-1] + (3,), device=p.device),
                          occ[..., None]], dim=-1)
@@ -372,8 +397,12 @@ def eval_stage(params: Params, cfg: ModelConfig, stage: str, p, D, I,
             col_dec, cfg, p, D, I, col_feats, cloud_pos, r_query,
             diff_pos=is_tracker, encode_rel_pos=cfg.encode_rel_pos_in_col)
     vmask = valid_ray_mask(has, n_pts_per_ray, cfg.N_surface)
-    occ = apply_geo(geo_dec, cfg, p, c_geo)
-    rgb = apply_color(col_dec, cfg, p, c_col, views_d=views_d,
-                      normals=normals, exposure_feat=exposure_feat)
+    if fused_usable(cfg, views_d, normals):
+        occ, rgb = fused_color_pair(geo_dec, col_dec, cfg, p, c_geo, c_col,
+                                    exposure_feat=exposure_feat)
+    else:
+        occ = apply_geo(geo_dec, cfg, p, c_geo)
+        rgb = apply_color(col_dec, cfg, p, c_col, views_d=views_d,
+                          normals=normals, exposure_feat=exposure_feat)
     raw = torch.cat([rgb, occ[..., None]], dim=-1)
     return raw, vmask, has

@@ -1,21 +1,31 @@
-"""Whole-iteration mapping loss of the union path (port of
-``nicer_fused_maploss``, hpslam_tpu/ops/fused_mlp.py:1365) and its kernels.
+"""The reference's fused decoder entry points (hpslam_tpu/ops/fused_mlp.py)
+and their hand-written kernels.  Every kernel has a plain PyTorch version
+beside it; a wrapper takes the plain version only for CPU tensors and, for
+CUDA tensors, launches its kernel or raises.
 
-Kernels 2 and 3 (``csrc/maploss.cu``): the forward (losses only,
-replacing `_maploss_fwd_kernel`) and the combined forward-plus-cotangents
-(replacing `_maploss_bwd_kernel`).  Under autograd the combined kernel is
-the only launch: ``_MapLoss.forward`` runs it and stashes the cotangents,
-``_MapLoss.backward`` scales them by the incoming cotangent, as the
-reference's ``_nml_fwd`` / ``_nml_bwd`` do.  Without a gradient the forward
-kernel runs.  CPU tensors take ``maploss_plain``: the same arithmetic in
-PyTorch ops (after ``_maploss_common``), differentiated by autograd.
+* ``nicer_fused_maploss`` (reference :1365): the union path's
+  whole-iteration mapping loss, kernels #2 and #3 (``csrc/maploss.cu``):
+  the forward (losses only, replacing `_maploss_fwd_kernel`) and the
+  combined forward-plus-cotangents (replacing `_maploss_bwd_kernel`).
+  Under autograd the combined kernel is the only launch:
+  ``_MapLoss.forward`` runs it and stashes the cotangents,
+  ``_MapLoss.backward`` scales them by the incoming cotangent, as the
+  reference's ``_nml_fwd`` / ``_nml_bwd`` do.  Without a gradient the
+  forward kernel runs.  Plain version: ``maploss_plain``, differentiated by
+  autograd.
+* ``nicer_fused_color`` / ``nicer_fused_geo`` (reference :611, :653): the
+  two decoder trunks, kernels #4 and #5 (``csrc/trunks.cu``), forward and
+  remat backward.  Plain versions: ``fused_trunks_plain`` and
+  ``fused_trunks_plain_bwd``.
+* ``nicer_fused_trackloss`` (reference :1829): the tracker's
+  pose-differentiable render, kernels #8 and #9 (``csrc/trackloss.cu``).
+  Plain version: ``trackloss_plain``, differentiated by autograd.
+* ``nicer_fused_composite`` (kernels #6-7, reached only by the
+  multi-device path) is not ported and raises.
 
-The other fused entry points of the reference (fused trunks, fused
-composite render, fused tracker loss) are not ported yet and raise.
-
-Packed cache row layout (``mapper.pack_union_cache``), S samples, u union
-slots: [z S | pts 3S | rays_d 3 | d_gt 1 | c_gt 3 | pmask S | Wm S*u |
-uids u].
+Packed cache row layout of the mapping loss (``mapper.pack_union_cache``),
+S samples, u union slots: [z S | pts 3S | rays_d 3 | d_gt 1 | c_gt 3 |
+pmask S | Wm S*u | uids u].
 """
 from __future__ import annotations
 
@@ -25,7 +35,7 @@ import math
 import torch
 
 from .. import _cuda
-from ..models.decoder import fourier_features, softplus100
+from ..models.decoder import fourier_features, fourier_proj, softplus100
 
 
 def flatten_core(core) -> list:
@@ -44,16 +54,35 @@ def row_offsets(S: int, u: int) -> dict:
             "uids": 5 * S + 7 + S * u}
 
 
-def _trunk(e, c, flat, n_blocks: int, skip: int, act):
+def _dact(code: int, a):
+    """activation'(a) from the pre-activation (ReLU 0, Softplus(100) 1)."""
+    if code == 0:
+        return (a > 0.0).to(a.dtype)
+    bx = 100.0 * a
+    return torch.where(bx > 20.0, torch.ones_like(a),
+                       torch.sigmoid(torch.clamp(bx, max=20.0)))
+
+
+def _trunk_saved(e, c, flat, n_blocks: int, skip: int, act):
+    """One trunk, skip concat after block ``skip`` and per-block feature
+    injection h = act(h W + b) + c F + f, with the residuals its backward
+    needs: (out, (pre-activations, layer inputs, last hidden))."""
     h = e
+    a_s, x_s = [], []
     for i in range(n_blocks):
         W, b = flat[2 * i], flat[2 * i + 1]
         F, f = flat[2 * n_blocks + 2 * i], flat[2 * n_blocks + 2 * i + 1]
-        h = act(h @ W + b)
-        h = h + c @ F + f
+        x_s.append(h)
+        a = h @ W + b
+        a_s.append(a)
+        h = act(a) + c @ F + f
         if i == skip:
             h = torch.cat([e, h], dim=-1)
-    return h @ flat[-2] + flat[-1]
+    return h @ flat[-2] + flat[-1], (a_s, x_s, h)
+
+
+def _trunk(e, c, flat, n_blocks: int, skip: int, act):
+    return _trunk_saved(e, c, flat, n_blocks, skip, act)[0]
 
 
 def maploss_plain(uf, aff, col_flat, row, okf, geo_flat, Bs, n_blocks: int,
@@ -194,16 +223,16 @@ class _MapLoss(torch.autograd.Function):
                 *[d * g_gl for d in dcol])
 
 
-def _check(name, t, shape=None, dev=None):
+def _check(name, t, shape=None, dev=None, what="maploss"):
     if t.dtype != torch.float32:
-        raise ValueError(f"maploss: {name} must be float32")
+        raise ValueError(f"{what}: {name} must be float32")
     if not t.is_contiguous():
-        raise ValueError(f"maploss: {name} must be contiguous")
+        raise ValueError(f"{what}: {name} must be contiguous")
     if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"maploss: {name} has shape {tuple(t.shape)}, "
+        raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, "
                          f"expected {tuple(shape)}")
     if dev is not None and t.device != dev:
-        raise ValueError(f"maploss: {name} is on {t.device}, not {dev}")
+        raise ValueError(f"{what}: {name} is on {t.device}, not {dev}")
 
 
 def nicer_fused_maploss(uf, aff, col_core_flat, row, okf, geo_core_flat, Bs,
@@ -255,16 +284,424 @@ def nicer_fused_maploss(uf, aff, col_core_flat, row, okf, geo_core_flat, Bs,
                           tuple(Bs), *col_core_flat)
 
 
-def _not_ported(name):
-    def fn(*args, **kwargs):
-        raise NotImplementedError(
-            f"{name} (hpslam_tpu/ops/fused_mlp.py) is not ported yet; see "
-            "ROADMAP.md")
-    fn.__name__ = name
-    return fn
+def _weights_of(flat):
+    return [w.contiguous() for w in flat]
 
 
-nicer_fused_color = _not_ported("nicer_fused_color")
-nicer_fused_geo = _not_ported("nicer_fused_geo")
-nicer_fused_composite = _not_ported("nicer_fused_composite")
-nicer_fused_trackloss = _not_ported("nicer_fused_trackloss")
+# ---------------------------------------------------------------------------
+# Fused trunks: nicer_fused_color / nicer_fused_geo (kernels #4 and #5,
+# csrc/trunks.cu).  Under autograd the forward launches kernel #4 and the
+# backward kernel #5, which recomputes the forward, as the reference's
+# custom VJP does.  CPU tensors take fused_trunks_plain and
+# fused_trunks_plain_bwd, the backward written out as the reference's
+# _trunk_bwd_block writes it.
+
+def _trunk_bwd(g_out, e, c, flat, saved, n_blocks: int, skip: int,
+               code: int, need_wgrads: bool):
+    """Backward of one trunk (the reference's _trunk_bwd_block): (d_e, d_c,
+    weight grads in flatten_core order, or None)."""
+    a_s, x_s, h_last = saved
+    dh = g_out @ flat[-2].T
+    d_e = torch.zeros_like(e)
+    d_c = torch.zeros_like(c)
+    dW, dF = [None] * (2 * n_blocks), [None] * (2 * n_blocks)
+    for i in range(n_blocks - 1, -1, -1):
+        if i == skip:
+            d_e = d_e + dh[:, :e.shape[1]]
+            dh = dh[:, e.shape[1]:]
+        W, F = flat[2 * i], flat[2 * n_blocks + 2 * i]
+        d_c = d_c + dh @ F.T
+        da = dh * _dact(code, a_s[i])
+        if need_wgrads:
+            dF[2 * i], dF[2 * i + 1] = c.T @ dh, torch.sum(dh, 0)
+            dW[2 * i], dW[2 * i + 1] = x_s[i].T @ da, torch.sum(da, 0)
+        dh = da @ W.T
+    d_e = d_e + dh
+    if not need_wgrads:
+        return d_e, d_c, None
+    return d_e, d_c, dW + dF + [h_last.T @ g_out, torch.sum(g_out, 0)]
+
+
+def fused_trunks_plain(p, c_geo, c_col, Bs, geo_flat, col_flat,
+                       n_blocks: int, skip: int, with_color: bool):
+    """Plain version of kernel #4: (occ (n,), raw rgb (n, 3), zero without
+    colour)."""
+    Bg, Bc = Bs
+    occ = _trunk(fourier_features(p, Bg, concat_cos=False), c_geo,
+                 geo_flat, n_blocks, skip, torch.relu)[:, 0]
+    if not with_color:
+        return occ, torch.zeros((p.shape[0], 3), dtype=p.dtype,
+                                device=p.device)
+    rgb = _trunk(fourier_features(p, Bc, concat_cos=True), c_col, col_flat,
+                 n_blocks, skip, softplus100)
+    return occ, rgb
+
+
+def fused_trunks_plain_bwd(p, c_geo, c_col, Bs, geo_flat, col_flat, g_occ,
+                           g_rgb, n_blocks: int, skip: int, with_color: bool,
+                           need_dp: bool, need_wgrads: bool):
+    """Plain version of kernel #5: (dp (n, 3), dc_geo, dc_col, colour-core
+    weight grads or None), written out as the reference's _bwd_kernel."""
+    Bg, Bc = Bs
+    tp = 2.0 * math.pi
+    eg = fourier_features(p, Bg, concat_cos=False)
+    _, saved = _trunk_saved(eg, c_geo, geo_flat, n_blocks, skip, torch.relu)
+    d_eg, dcg, _ = _trunk_bwd(g_occ.reshape(-1, 1), eg, c_geo, geo_flat,
+                              saved, n_blocks, skip, 0, False)
+    dp = torch.zeros_like(p)
+    if need_dp:
+        dp = tp * ((torch.cos(fourier_proj(p, Bg)) * d_eg) @ Bg.T)
+    if not with_color:
+        return dp, dcg, torch.zeros_like(c_geo), None
+    ec = fourier_features(p, Bc, concat_cos=True)
+    _, saved = _trunk_saved(ec, c_col, col_flat, n_blocks, skip, softplus100)
+    d_ec, dcc, dcol = _trunk_bwd(g_rgb, ec, c_col, col_flat, saved,
+                                 n_blocks, skip, 1, need_wgrads)
+    if need_dp:
+        proj = fourier_proj(p, Bc)
+        m = proj.shape[-1]
+        dproj = torch.cos(proj) * d_ec[:, :m] - torch.sin(proj) * d_ec[:, m:]
+        dp = dp + tp * (dproj @ Bc.T)
+    return dp, dcg, dcc, dcol
+
+
+def launch_trunks(p, c_geo, c_col, Bs, geo_flat, col_flat, n_blocks, skip,
+                  with_color, backward: bool, g_occ=None, g_rgb=None,
+                  need_dp: bool = False, need_wgrads: bool = False):
+    """Run kernel #4 (backward=False): (occ, rgb); or #5: (dp, dcg, dcc,
+    colour-core weight grads or None)."""
+    Bg, Bc = Bs
+    n, C = c_geo.shape
+    dev = p.device
+    lib = _cuda.lib("trunks")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    hid_g, emb_g = geo_flat[0].shape[1], Bg.shape[1]
+    hid_c = col_flat[0].shape[1] if with_color else hid_g
+    emb_c = 2 * Bc.shape[1] if with_color else emb_g
+    need_dp = bool(backward and need_dp)
+    wgrads = bool(backward and with_color and need_wgrads)
+    n_scr = lib.hp_trunks_scratch_floats(n, C, emb_g, hid_g, emb_c, hid_c,
+                                         n_blocks, int(with_color),
+                                         int(need_dp))
+    scratch = torch.empty((n_scr,), dtype=torch.float32, device=dev)
+    occ = rgb = dp = dcg = dcc = wpart = None
+    dcol = []
+    wsplits = 1
+    if backward:
+        dp = torch.empty((n, 3), dtype=torch.float32, device=dev)
+        dcg = torch.empty((n, C), dtype=torch.float32, device=dev)
+        dcc = torch.empty((n, C), dtype=torch.float32, device=dev)
+        if wgrads:
+            dcol = [torch.empty_like(w) for w in col_flat]
+            wsplits = max(1, -(-n // 1024))
+            wpart = torch.empty((wsplits * (emb_c + hid_c) * hid_c,),
+                                dtype=torch.float32, device=dev)
+    else:
+        occ = torch.empty((n,), dtype=torch.float32, device=dev)
+        rgb = torch.empty((n, 3), dtype=torch.float32, device=dev)
+
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
+
+    rc = lib.hp_trunks(
+        p.data_ptr(), c_geo.data_ptr(),
+        (c_col if with_color else c_geo).data_ptr(), Bg.data_ptr(),
+        (Bc if with_color else Bg).data_ptr(), _ptr_array(geo_flat),
+        _ptr_array(col_flat if with_color else geo_flat), n, C, emb_g, hid_g,
+        emb_c, hid_c, n_blocks, skip, int(with_color), int(backward),
+        int(need_dp), int(wgrads), ptr(g_occ), ptr(g_rgb),
+        scratch.data_ptr(), ptr(occ), ptr(rgb), ptr(dp), ptr(dcg), ptr(dcc),
+        _ptr_array(dcol) if dcol else None, ptr(wpart), wsplits, stream)
+    _cuda.check(rc, "trunks")
+    if not backward:
+        return occ, rgb
+    return dp, dcg, dcc, (dcol if wgrads else None)
+
+
+def _check_trunks(p, c_geo, c_col, Bs, geo_flat, col_flat, n_blocks,
+                  with_color):
+    dev = p.device
+    n = p.shape[0]
+    _check("p", p, (n, 3), dev, "trunks")
+    _check("c_geo", c_geo, (n, c_geo.shape[1]), dev, "trunks")
+    if with_color:
+        _check("c_col", c_col, c_geo.shape, dev, "trunks")
+    for name, t in [("Bg", Bs[0])] + ([("Bc", Bs[1])] if with_color else []) \
+            + [("geo weight", w) for w in geo_flat] \
+            + [("col weight", w) for w in col_flat]:
+        _check(name, t, None, dev, "trunks")
+    if len(geo_flat) != 4 * n_blocks + 2 or (
+            with_color and len(col_flat) != 4 * n_blocks + 2):
+        raise ValueError("trunks: core weights must follow flatten_core")
+    if n_blocks > 8:
+        raise ValueError("trunks kernel supports n_blocks <= 8")
+
+
+class _FusedTrunks(torch.autograd.Function):
+    """Kernel #4 forward, kernel #5 backward (plain versions on the CPU).
+    Differentiable in p (zero unless need_dp), c_geo, c_col and, with
+    need_wgrads, the colour-core weights; the geometry core and both Bs get
+    no gradient (zero), as in the reference."""
+
+    @staticmethod
+    def forward(ctx, cfg, p, c_geo, c_col, Bg, Bc, n_geo, *flat):
+        geo_flat, col_flat = flat[:n_geo], flat[n_geo:]
+        args = (p, c_geo, c_col, (Bg, Bc), geo_flat, col_flat,
+                cfg["n_blocks"], cfg["skip"], cfg["with_color"])
+        if p.device.type == "cpu":
+            occ, rgb = fused_trunks_plain(*args)
+        else:
+            _cuda.LAUNCHES["trunks_fwd"] += 1
+            occ, rgb = launch_trunks(*args, backward=False)
+        ctx.cfg, ctx.n_geo = cfg, n_geo
+        ctx.save_for_backward(p, c_geo, c_col, Bg, Bc, *flat)
+        return occ, rgb
+
+    @staticmethod
+    def backward(ctx, g_occ, g_rgb):
+        p, c_geo, c_col, Bg, Bc, *flat = ctx.saved_tensors
+        cfg, n_geo = ctx.cfg, ctx.n_geo
+        geo_flat, col_flat = flat[:n_geo], flat[n_geo:]
+        need = ctx.needs_input_grad
+        need_wgrads = cfg["need_wgrads"] and any(need[7 + n_geo:])
+        args = (p, c_geo, c_col, (Bg, Bc), geo_flat, col_flat,
+                g_occ.contiguous(), g_rgb.contiguous(), cfg["n_blocks"],
+                cfg["skip"], cfg["with_color"], cfg["need_dp"] and need[1],
+                need_wgrads)
+        if p.device.type == "cpu":
+            dp, dcg, dcc, dcol = fused_trunks_plain_bwd(*args)
+        else:
+            _cuda.LAUNCHES["trunks_bwd"] += 1
+            dp, dcg, dcc, dcol = launch_trunks(
+                *args[:6], *args[8:11], backward=True, g_occ=args[6],
+                g_rgb=args[7], need_dp=args[11], need_wgrads=need_wgrads)
+        return (None, dp, dcg, dcc if cfg["with_color"] else None, None,
+                None, None, *([None] * n_geo),
+                *(dcol if dcol is not None else [None] * len(col_flat)))
+
+
+def _fused_trunks(p, c_geo, c_col, geo_flat, col_flat, Bs, n_blocks, skip,
+                  with_color, need_dp, need_wgrads):
+    p, c_geo = p.contiguous(), c_geo.contiguous()
+    if c_col is not None:
+        c_col = c_col.contiguous()
+    if p.device.type == "cuda":
+        _check_trunks(p, c_geo, c_col, Bs, geo_flat, col_flat, n_blocks,
+                      with_color)
+    elif p.device.type != "cpu":
+        raise ValueError(f"trunks: unsupported device {p.device}")
+    cfg = dict(n_blocks=n_blocks, skip=skip, with_color=with_color,
+               need_dp=need_dp, need_wgrads=need_wgrads)
+    return _FusedTrunks.apply(cfg, p, c_geo, c_col, Bs[0], Bs[1],
+                              len(geo_flat), *geo_flat, *col_flat)
+
+
+def nicer_fused_color(p, c_geo, c_col, geo_core_flat, col_core_flat, Bs,
+                      n_blocks: int, skip: int, need_dp: bool = True,
+                      need_wgrads: bool = True):
+    """(occ_logit (n,), raw rgb (n, 3)) of one colour stage.
+
+    Differentiable in p (with need_dp), c_geo, c_col and (with need_wgrads)
+    the colour core weights; the geometry core and both Fourier Bs get zero
+    cotangents (frozen, as in the reference)."""
+    return _fused_trunks(p, c_geo, c_col, _weights_of(geo_core_flat),
+                         _weights_of(col_core_flat), Bs, n_blocks, skip,
+                         True, need_dp, need_wgrads)
+
+
+def nicer_fused_geo(p, c_geo, geo_core_flat, Bg, n_blocks: int, skip: int,
+                    need_dp: bool = True):
+    """occ_logit (n,) of one geometry stage; differentiable in p (with
+    need_dp) and c_geo only."""
+    occ, _ = _fused_trunks(p, c_geo, None, _weights_of(geo_core_flat), (),
+                           (Bg, None), n_blocks, skip, False, need_dp,
+                           False)
+    return occ
+
+
+# ---------------------------------------------------------------------------
+# Fused tracker render: nicer_fused_trackloss (kernels #8 and #9,
+# csrc/trackloss.cu).  Per-stage constants (tracker.stage_knn):
+#   rowc  (n, 2S+6+3SK)  [z S | d_gt 1 | c_gt 3 | r2 1 | has S | nz 1 |
+#                         cpos SK*3]
+#   cfeat (n, SK*2C)     cached neighbour features [geo C | col C] per slot
+# per iteration: rays (n, 6) [o | d], aff (n, 12) exposure affine rows.
+
+def trackrow_offsets(S: int, K: int) -> dict:
+    return {"z": 0, "d_gt": S, "c_gt": S + 1, "r2": S + 4, "has": S + 5,
+            "nz": 2 * S + 5, "cpos": 2 * S + 6}
+
+
+def trackloss_plain(rays, aff, rowc, cfeat, geo_flat, col_flat, Bs,
+                    n_blocks: int, skip: int, S: int, K: int, C: int,
+                    coef: float, wmode: int, use_affine: bool,
+                    sigmoid_plain: bool):
+    """Plain version of the fused tracker render: (depth (n,), var (n,),
+    color (n, 3)), differentiable in rays and aff by autograd.  In-kernel
+    interpolation weights (wmode 0: 1/(d^2+1e-10), 1: exp(-20 d)) inside
+    r^2, both trunks, the per-sample exposure affine + sigmoid (or plain
+    sigmoid) tail and the occupancy compositor."""
+    Bg, Bc = Bs
+    n = rays.shape[0]
+    o = trackrow_offsets(S, K)
+    z = rowc[:, :S]
+    r2 = rowc[:, o["r2"]:o["r2"] + 1]
+    has = rowc[:, o["has"]:o["has"] + S] > 0.5
+    cpos = rowc[:, o["cpos"]:o["cpos"] + 3 * S * K].reshape(n, S, K, 3)
+    pts = rays[:, None, :3] + z[..., None] * rays[:, None, 3:]
+    dd = torch.sum(torch.square(cpos - pts[:, :, None]), -1)    # (n, S, K)
+    inr = dd <= r2[..., None]
+    if wmode == 0:
+        w = torch.where(inr, 1.0 / (dd + 1e-10), 0.0)
+    else:
+        w = torch.where(inr, torch.exp(-20.0 * torch.sqrt(
+            torch.clamp(dd, min=1e-12))), 0.0)
+    wn = w / torch.clamp(torch.sum(w, -1, keepdim=True), min=1e-12)
+    c = torch.sum(wn[..., None] * cfeat.reshape(n, S, K, 2 * C), 2)
+    c = torch.where(has[..., None], c, 0.0).reshape(n * S, 2 * C)
+    p = pts.reshape(n * S, 3)
+    occ = _trunk(fourier_features(p, Bg, concat_cos=False), c[:, :C],
+                 geo_flat, n_blocks, skip, torch.relu)[:, 0].reshape(n, S)
+    raw = _trunk(fourier_features(p, Bc, concat_cos=True), c[:, C:],
+                 col_flat, n_blocks, skip, softplus100).reshape(n, S, 3)
+    if use_affine:
+        a = aff[:, None, :]
+        rgb = torch.sigmoid(torch.stack([
+            raw[..., 0] * a[..., d] + raw[..., 1] * a[..., 3 + d]
+            + raw[..., 2] * a[..., 6 + d] + a[..., 9 + d]
+            for d in range(3)], -1))
+    elif sigmoid_plain:
+        rgb = torch.sigmoid(raw)
+    else:
+        rgb = raw
+    alpha = torch.sigmoid(coef * torch.where(has, occ, -100.0))
+    ts, t_run = [], torch.ones_like(alpha[:, 0])
+    for s in range(S):
+        ts.append(t_run)
+        t_run = t_run * ((1.0 - alpha[:, s]) + 1e-10)
+    wc = alpha * torch.stack(ts, 1)
+    wsum = torch.sum(wc, 1) + 1e-10
+    depth = torch.sum(wc * z, 1) / wsum
+    color = torch.sum(wc[..., None] * rgb, 1) / wsum[:, None]
+    var = torch.sum(wc * torch.square(z - depth[:, None]), 1)
+    return depth, var, color
+
+
+def launch_trackloss(rays, aff, rowc, cfeat, geo_flat, col_flat, Bs,
+                     n_blocks, skip, S, K, C, coef, wmode, use_affine,
+                     sigmoid_plain, backward: bool, g_depth=None,
+                     g_color=None):
+    """Run kernel #8 (backward=False): (depth, var, color); or #9: (drays,
+    daff)."""
+    Bg, Bc = Bs
+    n, Dr = rowc.shape
+    dev = rays.device
+    lib = _cuda.lib("trackloss")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    hid_g, hid_c = geo_flat[0].shape[1], col_flat[0].shape[1]
+    emb_g, emb_c = Bg.shape[1], 2 * Bc.shape[1]
+    n_scr = lib.hp_trackloss_scratch_floats(n, S, C, emb_g, hid_g, emb_c,
+                                            hid_c, n_blocks, int(backward))
+    scratch = torch.empty((n_scr,), dtype=torch.float32, device=dev)
+
+    def new(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    outs = ((None, None, None, new(n, 6), new(n, 12)) if backward
+            else (new(n), new(n), new(n, 3), None, None))
+    rc = lib.hp_trackloss(
+        rays.data_ptr(), rowc.data_ptr(), Dr, cfeat.data_ptr(),
+        aff.data_ptr(), Bg.data_ptr(), Bc.data_ptr(), _ptr_array(geo_flat),
+        _ptr_array(col_flat), n, S, K, C, emb_g, hid_g, emb_c, hid_c,
+        n_blocks, skip, float(coef), int(wmode), int(use_affine),
+        int(sigmoid_plain), int(backward),
+        g_depth.data_ptr() if backward else None,
+        g_color.data_ptr() if backward else None, scratch.data_ptr(),
+        *[t.data_ptr() if t is not None else None for t in outs], stream)
+    _cuda.check(rc, "trackloss")
+    return outs[3:] if backward else outs[:3]
+
+
+class _TrackLoss(torch.autograd.Function):
+    """Kernel #8 forward, kernel #9 backward; differentiable in rays and
+    aff (var carries no gradient; the cache rows, features, weights and Bs
+    get none, i.e. zero, as in the reference)."""
+
+    @staticmethod
+    def forward(ctx, cfg, rays, aff, rowc, cfeat, Bg, Bc, n_geo, *flat):
+        _cuda.LAUNCHES["trackloss_fwd"] += 1
+        depth, var, color = launch_trackloss(
+            rays, aff, rowc, cfeat, flat[:n_geo], flat[n_geo:], (Bg, Bc),
+            backward=False, **cfg)
+        ctx.cfg, ctx.n_geo = cfg, n_geo
+        ctx.save_for_backward(rays, aff, rowc, cfeat, Bg, Bc, *flat)
+        ctx.mark_non_differentiable(var)
+        return depth, var, color
+
+    @staticmethod
+    def backward(ctx, g_depth, _g_var, g_color):
+        rays, aff, rowc, cfeat, Bg, Bc, *flat = ctx.saved_tensors
+        n_geo = ctx.n_geo
+        _cuda.LAUNCHES["trackloss_bwd"] += 1
+        drays, daff = launch_trackloss(
+            rays, aff, rowc, cfeat, flat[:n_geo], flat[n_geo:], (Bg, Bc),
+            backward=True, g_depth=g_depth.contiguous(),
+            g_color=g_color.contiguous(), **ctx.cfg)
+        return (None, drays, daff) + (None,) * (5 + len(flat))
+
+
+def nicer_fused_trackloss(rays, aff, rowc, cfeat, geo_flat, col_flat, Bs,
+                          n_blocks: int, skip: int, S: int, K: int, C: int,
+                          coef: float, wmode: int, use_affine: bool,
+                          sigmoid_plain: bool = False):
+    """Fused tracker render: (depth (n,), var (n,), color (n, 3)).
+
+    Differentiable in ``rays`` (n, 6 = [o | d]) and ``aff`` (n, 12); the
+    cache rows, neighbour features, decoder weights and Fourier Bs are
+    constants.  ``var`` carries no gradient.  CPU tensors take
+    trackloss_plain on the detached constants."""
+    geo_flat, col_flat = _weights_of(geo_flat), _weights_of(col_flat)
+    rays, aff = rays.contiguous(), aff.contiguous()
+    cfg = dict(n_blocks=n_blocks, skip=skip, S=S, K=K, C=C, coef=coef,
+               wmode=wmode, use_affine=use_affine,
+               sigmoid_plain=sigmoid_plain)
+    dev = rays.device
+    if cfeat.dtype != torch.float32:
+        raise ValueError("trackloss: cfeat must be float32 (bf16 features "
+                         "belong to model.mm_bf16, which is not ported)")
+    if dev.type == "cpu":
+        const = [t.detach() for t in geo_flat + col_flat]
+        d, v, c = trackloss_plain(
+            rays, aff, rowc.detach(), cfeat.detach(), const[:len(geo_flat)],
+            const[len(geo_flat):], (Bs[0].detach(), Bs[1].detach()), **cfg)
+        return d, v.detach(), c
+    if dev.type != "cuda":
+        raise ValueError(f"trackloss: unsupported device {dev}")
+    n = rays.shape[0]
+    _check("rays", rays, (n, 6), dev, "trackloss")
+    _check("aff", aff, (n, 12), dev, "trackloss")
+    _check("rowc", rowc, (n, 2 * S + 6 + 3 * S * K), dev, "trackloss")
+    _check("cfeat", cfeat, (n, S * K * 2 * C), dev, "trackloss")
+    for name, t in [("Bg", Bs[0]), ("Bc", Bs[1])] \
+            + [("weight", w) for w in geo_flat + col_flat]:
+        _check(name, t, None, dev, "trackloss")
+    if len(geo_flat) != 4 * n_blocks + 2 or len(col_flat) != 4 * n_blocks + 2:
+        raise ValueError("trackloss: core weights must follow flatten_core")
+    if S > 16 or K > 16 or n_blocks > 8:
+        raise ValueError("trackloss kernel supports S, K <= 16, "
+                         "n_blocks <= 8")
+    if torch.is_grad_enabled() and (rays.requires_grad or aff.requires_grad):
+        return _TrackLoss.apply(cfg, rays, aff, rowc, cfeat, Bs[0], Bs[1],
+                                len(geo_flat), *geo_flat, *col_flat)
+    _cuda.LAUNCHES["trackloss_fwd"] += 1
+    return launch_trackloss(rays, aff, rowc, cfeat, geo_flat, col_flat, Bs,
+                            backward=False, **cfg)
+
+
+def nicer_fused_composite(*args, **kwargs):
+    """Trunks + occupancy compositor per ray (the reference's
+    nicer_fused_composite, kernels #6-7): reached only by the multi-device
+    union path, which is not ported."""
+    raise NotImplementedError(
+        "nicer_fused_composite (hpslam_tpu/ops/fused_mlp.py) is not ported "
+        "yet; see ROADMAP.md")

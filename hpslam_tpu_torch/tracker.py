@@ -1,15 +1,17 @@
-"""Camera tracker (port of hpslam_tpu/tracker.py), plain dense-cache path.
+"""Camera tracker (port of hpslam_tpu/tracker.py).
 
 Per frame: two stages ('color_mid' then 'color_fine'), each split into
 ``resample_stages`` sub-stages.  A sub-stage draws a pixel set, runs one
 kNN search through the tile index at the sub-stage's starting pose
 (kernel 1 inside ``knn_tiles``), pre-gathers the frozen neighbour positions
-and [geo | col] features (the dense cache), then takes pose-gradient Adam
-steps through ``render_rays``.  The reference's ``lax.scan`` becomes a
+and [geo | col] features, then takes pose-gradient Adam steps.  Each step
+renders either through ``render_rays`` over the dense cache (the plain
+path) or, with ``tracking.fused_loss``, through one fused tracker render
+(``ops.fused_mlp.nicer_fused_trackloss``: kernel #8 forward, #9 backward)
+over per-sub-stage cache rows.  The reference's ``lax.scan`` becomes a
 Python loop; pixel draws come from a ``torch.Generator``.
 
-Not ported: the fused tracker loss (``tracking.fused_loss``) and the
-multi-device mesh; both raise NotImplementedError.
+Not ported: the multi-device mesh.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from .models import decoder as Dec
+from .ops import fused_mlp as FM
 from .ops import geometry as G
 from .ops import image as IM
 from .ops import knn as Knn
@@ -41,13 +44,20 @@ def track_frame(params, mcfg: Dec.ModelConfig, rcfg: RenderConfig,
                 cam_lr: float, separate_lr: bool, use_exposure: bool,
                 w_color: float, use_color: bool, handle_dynamic: bool,
                 resample_stages: int = 1, knn_probe: int = 16,
-                dense_cache: bool = True):
+                dense_cache: bool = True, fused_track: bool = False):
     """Optimise the camera of one frame.
 
     level_*: (pos, count, geo, col) of each level; index_*: its tile index.
+    fused_track: render each step through the fused tracker render
+    (baseline decoder variants only, as the reference).
     Returns (best_cam (7,), best_loss, losses (iters,), opt_params)."""
     dev = cam_init.device
-    if mcfg.encode_rel_pos_in_geo or mcfg.encode_rel_pos_in_col:
+    if fused_track and (mcfg.use_view_direction or mcfg.use_normals
+                        or mcfg.encode_rel_pos_in_col
+                        or mcfg.encode_rel_pos_in_geo):
+        raise ValueError("fused_track: baseline decoder variants only")
+    if mcfg.encode_rel_pos_in_geo or mcfg.encode_rel_pos_in_col \
+            or fused_track:
         dense_cache = False
     if separate_lr:
         opt_params = {"quad": cam_init[:4].clone(), "T": cam_init[4:].clone()}
@@ -89,7 +99,7 @@ def track_frame(params, mcfg: Dec.ModelConfig, rcfg: RenderConfig,
 
     @torch.no_grad()
     def stage_knn(inputs, tile_index, cloud_pos, cat_feats, cam):
-        i, j, d_gt, _c, _rq = inputs
+        i, j, d_gt, c_gt, rq = inputs
         c2w = G.get_camera_from_tensor(cam)
         rays_o, rays_d = G.get_rays_from_uv(i, j, c2w, fx, fy, cx, cy)
         safe = torch.where(d_gt > 0, d_gt, torch.ones_like(d_gt))
@@ -97,8 +107,10 @@ def track_frame(params, mcfg: Dec.ModelConfig, rcfg: RenderConfig,
                                 rcfg.far_end_surface, rcfg.fix_interval)
         p = (rays_o[:, None] + rays_d[:, None] * z[..., None]).reshape(-1, 3)
         D, I = Knn.knn_tiles(p, *tile_index, k=rcfg.nn_num, probe=knn_probe)
-        if not dense_cache:
+        if not (dense_cache or fused_track):
             return (D, I), None
+        # frozen neighbour positions and features gathered once; padded
+        # slots get a 1e6 sentinel position (zero weight)
         cap = cloud_pos.shape[0]
         I2 = torch.where(D >= Knn.BIG, torch.full_like(I, cap), I)
         safe_ids = torch.clamp(I2, max=cap - 1)
@@ -107,7 +119,44 @@ def track_frame(params, mcfg: Dec.ModelConfig, rcfg: RenderConfig,
                            torch.full((), 1e6, device=dev))
         cfs = torch.where(valid, cat_feats[safe_ids],
                           torch.zeros((), dtype=cat_feats.dtype, device=dev))
-        return (D, I), (cpos, cfs)
+        if not fused_track:
+            return (D, I), (cpos, cfs)
+        # the fused render's cache rows [z | d_gt | c_gt | r2 | has | nz |
+        # cpos]; `has` from the frozen search distances
+        n, S, kk = i.shape[0], rcfg.N_surface, rcfg.nn_num
+        r2 = (rq * rq)[:, None]
+        nn = torch.sum(D.reshape(n, S, kk) < r2[..., None], -1)
+        has = (nn > (mcfg.min_nn_num - 1)).float()
+        rowc = torch.cat([z, d_gt[:, None], c_gt, r2, has,
+                          (d_gt > 0).float()[:, None],
+                          cpos.reshape(n, S * kk * 3)], 1).contiguous()
+        return rowc, cfs.reshape(n, S * kk * 2 * mcfg.c_dim).contiguous()
+
+    def fused_render(pr, stage, rays_o, rays_d, d_gt, expo, rowc, cfs):
+        """One fused tracker render: trunks, in-kernel differentiable
+        interpolation weights, per-sample exposure and the compositor."""
+        lv = stage.split("_")[1]
+        gd, cd = pr[f"geo_{lv}"], pr[f"col_{lv}"]
+        n = rowc.shape[0]
+        use_aff = bool(mcfg.encode_exposure) and expo is not None
+        if use_aff:
+            rot, trans = Dec.exposure_affine(cd, expo)
+            aff = torch.cat([rot.reshape(9), trans])[None].expand(n, 12)
+        else:
+            aff = torch.zeros((n, 12), device=dev)
+        depth, unc, color = FM.nicer_fused_trackloss(
+            torch.cat([rays_o, rays_d], 1), aff, rowc, cfs,
+            FM.flatten_core(gd["core"]), FM.flatten_core(cd["core"]),
+            (gd["B"], cd["B"]), mcfg.n_blocks, mcfg.skip, rcfg.N_surface,
+            rcfg.nn_num, mcfg.c_dim, float(rcfg.sigmoid_coef),
+            0 if mcfg.weighting == "distance" else 1, use_aff,
+            not mcfg.encode_exposure)
+        nz = d_gt > 0
+        if not rcfg.sample_near_pcl:
+            depth = torch.where(nz, depth, torch.zeros_like(depth))
+        if rcfg.skip_zero_depth_pixel:
+            color = torch.where(nz[:, None], color, torch.zeros_like(color))
+        return depth, unc, color
 
     def loss_fn(op, stage, level, inputs, knn_cache, dense, cat_feats,
                 inside_thresh):
@@ -117,10 +166,14 @@ def track_frame(params, mcfg: Dec.ModelConfig, rcfg: RenderConfig,
         rays_o, rays_d = G.get_rays_from_uv(i, j, c2w, fx, fy, cx, cy)
         pos, count, geo, col = level
         inside = d_gt <= inside_thresh
-        depth, unc, color, _ = render_rays(
-            pr, mcfg, rcfg, stage, rays_o, rays_d, d_gt, pos, count, geo,
-            col, rq, is_tracker=True, exposure_feat=expo,
-            knn_cache=knn_cache, cat_feats=cat_feats, dense_cache=dense)
+        if fused_track:
+            depth, unc, color = fused_render(pr, stage, rays_o, rays_d, d_gt,
+                                             expo, knn_cache, dense)
+        else:
+            depth, unc, color, _ = render_rays(
+                pr, mcfg, rcfg, stage, rays_o, rays_d, d_gt, pos, count,
+                geo, col, rq, is_tracker=True, exposure_feat=expo,
+                knn_cache=knn_cache, cat_feats=cat_feats, dense_cache=dense)
         unc = unc.detach()
         ok = inside & torch.isfinite(depth) & torch.isfinite(unc)
         tmp = torch.abs(d_gt - depth) / torch.sqrt(unc + 1e-10)
@@ -209,10 +262,10 @@ class Tracker:
         self.resample_stages = int(t.get("resample_stages", 1))
         self.knn_probe = int(t.get("knn_probe", 12))
         self.dense_cache = bool(t.get("dense_cache", True))
-        if t.get("fused_loss", False) not in (False, "auto"):
-            raise NotImplementedError(
-                "tracking.fused_loss (the fused tracker-loss kernels) is not "
-                "ported yet; see ROADMAP.md")
+        # the fused tracker render; 'auto' means off, as in the reference
+        # off the TPU
+        fused = t.get("fused_loss", False)
+        self.fused_loss = fused != "auto" and bool(fused)
         self.gt_camera = t["gt_camera"]
         self.depth_limit = 5.0 if t["depth_limit"] else None
         self.ratio_iter_mid = 0.5
@@ -223,6 +276,15 @@ class Tracker:
         self.rcfg = RenderConfig.from_cfg(cfg, "sigmoid_coef_tracker")
         self.gen = torch.Generator(device=slam.device)
         self.gen.manual_seed(int(cfg.get("seed", 1219)) + 2)
+
+    def fused_ok(self) -> bool:
+        """The fused render covers the baseline decoder; a variant knob
+        (rel-pos, normals, view direction) takes the plain path, as the
+        reference's _fused_ok does."""
+        m = self.slam.mcfg
+        return self.fused_loss and not (
+            m.use_view_direction or m.use_normals
+            or m.encode_rel_pos_in_col or m.encode_rel_pos_in_geo)
 
     def prepare_radii(self, color: np.ndarray):
         return IM.dynamic_radii(color, self.radius_hierarchy,
@@ -286,7 +348,7 @@ class Tracker:
             w_color=self.w_color, use_color=self.use_color,
             handle_dynamic=self.handle_dynamic,
             resample_stages=self.resample_stages, knn_probe=self.knn_probe,
-            dense_cache=self.dense_cache)
+            dense_cache=self.dense_cache, fused_track=self.fused_ok())
         best_cam = best_cam.detach().cpu().numpy()
         best_loss = float(best_loss)
         losses = losses.cpu().numpy()

@@ -100,9 +100,40 @@ def test_softplus_and_valid_ray_mask(rng):
         np.asarray(jDec.valid_ray_mask(jnp.asarray(has), 5, 5)))
 
 
-def test_fused_trunks_raise_not_implemented():
-    cfg = tDec.ModelConfig(fused_mlp=True)
-    assert tDec.fused_usable(cfg)
-    with pytest.raises(NotImplementedError):
-        tDec.eval_stage({"geo_fine": {}}, cfg, "geometry_fine", None, None,
-                        None, None, None, None, None, 5)
+def test_fused_trunks_raise_not_implemented(rng):
+    """The fused trunks are ported: eval_stage with fused_mlp on gives what
+    the plain trunks give, in values and in the gradients of the features
+    and of the colour core (rtol 1e-5 / atol 1e-6: the same f32 products,
+    summed in another grouping by the written-out backward)."""
+    cfg = tDec.ModelConfig(c_dim=8, geo_embed=16, col_embed=8, rel_embed=4,
+                           hidden_geo=16, hidden_col=32)
+    params = tDec.init_nicer(torch.Generator().manual_seed(3), cfg, "cpu")
+    n, k = 40, 8
+    cloud = torch.tensor(rng.uniform(-1, 1, (200, 3)).astype(np.float32))
+    p = torch.tensor(rng.uniform(-0.8, 0.8, (n, 3)).astype(np.float32))
+    D, I = torch.topk(torch.cdist(p, cloud) ** 2, k, dim=1, largest=False)
+    rq = torch.full((n,), 0.6)
+    geo = torch.tensor(rng.normal(0, 0.3, (200, 8)).astype(np.float32))
+    col = torch.tensor(rng.normal(0, 0.3, (200, 8)).astype(np.float32))
+    w_out = params["col_fine"]["core"]["out"]["w"]
+    for stage in ("geometry_fine", "color_fine"):
+        outs = []
+        for fused in (False, True):
+            c = dataclasses.replace(cfg, fused_mlp=fused)
+            assert tDec.fused_usable(c) == fused
+            feats = [geo.clone().requires_grad_(),
+                     col.clone().requires_grad_()]
+            w_out.grad = None
+            w_out.requires_grad_(True)
+            raw, _vm, _has = tDec.eval_stage(params, c, stage, p, D, I,
+                                             *feats, cloud, rq, 5)
+            raw.sum().backward()
+            w_out.requires_grad_(False)
+            grads = [f.grad if f.grad is not None else torch.zeros_like(f)
+                     for f in feats]
+            wg = (w_out.grad if w_out.grad is not None
+                  else torch.zeros_like(w_out))
+            outs.append([raw.detach()] + grads + [wg])
+        for name, a, b in zip(("raw", "dgeo", "dcol", "dWout"), *outs):
+            np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=1e-5,
+                                       atol=1e-6, err_msg=f"{stage} {name}")

@@ -33,10 +33,15 @@ def _write_cfg(tmp_path, cfg) -> str:
     return str(path)
 
 
-def _run_port(tmp_path):
+def _run_port(tmp_path, fused_paths: bool = False):
     from hpslam_tpu_torch import run as R
     torch.manual_seed(0)
     cfg = tiny_cfg(tmp_path)
+    if fused_paths:
+        # the fused tracker render and the union mapping path on the fused
+        # trunks (no mapping-loss kernel)
+        cfg["tracking"]["fused_loss"] = True
+        cfg["model"]["fused_composite"] = False
     path = _write_cfg(tmp_path, cfg)
     out = str(tmp_path / "port_out")
     results, summary = R.run([path, "--output", out, "--device", "cpu"])
@@ -57,6 +62,37 @@ def test_port_runs_tiny_synthetic_on_cpu(tmp_path):
     assert state["levels"]["fine"]["count"] > 0
     assert state["decoder_params"]["col_fine"]["core"]["out"]["w"].shape \
         == (128, 3)
+
+
+def test_port_runs_tiny_synthetic_fused_paths_on_cpu(tmp_path, monkeypatch):
+    """tracking.fused_loss on and model.fused_composite off: every tracker
+    step goes through nicer_fused_trackloss and every mapping step through
+    the fused trunks, never the mapping loss."""
+    from hpslam_tpu_torch.ops import fused_mlp as FM
+    calls = {"trackloss": 0, "color": 0, "geo": 0}
+
+    def counted(name, fn):
+        def wrapper(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    monkeypatch.setattr(FM, "nicer_fused_trackloss",
+                        counted("trackloss", FM.nicer_fused_trackloss))
+    monkeypatch.setattr(FM, "nicer_fused_color",
+                        counted("color", FM.nicer_fused_color))
+    monkeypatch.setattr(FM, "nicer_fused_geo",
+                        counted("geo", FM.nicer_fused_geo))
+
+    def no_maploss(*args, **kwargs):
+        raise AssertionError("the mapping-loss path was taken")
+
+    monkeypatch.setattr(FM, "nicer_fused_maploss", no_maploss)
+    results, summary, _out = _run_port(tmp_path, fused_paths=True)
+    rmse = results["absolute_translational_error.rmse"]
+    assert np.isfinite(rmse) and rmse < 0.5, rmse
+    assert summary["n_frames"] == 7
+    assert min(calls.values()) > 0, calls
 
 
 @pytest.mark.slow

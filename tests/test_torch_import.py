@@ -77,6 +77,15 @@ def test_entry_points_refuse_cpu_drift(monkeypatch):
             torch.zeros((2, 12), device="meta"), [], row,
             torch.zeros((2, 1), device="meta"), [], (None, None), 5, 2,
             True, 5, 4, 8, 0.1, True, False, 0.1)
+    with pytest.raises(ValueError):
+        fused_mlp.nicer_fused_geo(x[:, :3], x, [], None, 5, 2)
+    with pytest.raises(ValueError):
+        fused_mlp.nicer_fused_trackloss(
+            torch.zeros((2, 6), device="meta"),
+            torch.zeros((2, 12), device="meta"),
+            torch.zeros((2, 2 * 5 + 6 + 3 * 5 * 8), device="meta"),
+            torch.zeros((2, 5 * 8 * 16), device="meta"), [], [], (None, None),
+            5, 2, 5, 8, 8, 0.1, 0, False, True)
 
 
 def test_smoke_refuses_without_cuda_and_outside_the_repo(tmp_path):

@@ -4,9 +4,13 @@ there is no CUDA device; chip_smoke.py runs the same comparisons at the
 main path's shapes.
 
 Tolerances: row top-k bitwise (selection copies existing floats).  Mapping
-loss: losses rtol 1e-4; cotangents ||kernel - plain|| / ||plain|| <= 1e-4
-(f32 sums taken in another order; a ReLU pre-activation within rounding of
-0 can flip one unit's gradient between the two orders).
+loss, fused trunks and tracker render: values rtol 1e-4 (elementwise, atol
+1e-4 of the largest magnitude); cotangents ||kernel - plain|| / ||plain||
+<= 1e-4 (f32 sums taken in another order; a ReLU pre-activation within
+rounding of 0 can flip one unit's gradient between the two orders); the
+tracker render's d rays, whose rounding the distance weights amplify,
+within twice the f32 plain version's distance from the float64 plain
+version, in norm and entry by entry (chip_smoke.check_drays).
 """
 import numpy as np
 import pytest
@@ -102,3 +106,95 @@ def test_maploss_kernels_match_plain(cuda, with_color):
     for a, b in pairs:
         rel = float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
         assert rel <= 1e-4, rel
+
+
+def _close_rel(a, b, name):
+    rel = float(torch.linalg.norm(a - b) / max(float(torch.linalg.norm(b)),
+                                               1e-30))
+    assert rel <= 1e-4, (name, rel)
+
+
+def _values_close(a, b, name):
+    tol = 1e-4 * float(b.abs().max()) + 1e-6
+    assert torch.allclose(a, b, rtol=1e-4, atol=tol), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_color,need_dp", [(True, False), (True, True),
+                                                (False, True)])
+def test_trunks_kernels_match_plain(cuda, with_color, need_dp):
+    """Kernels #4 (forward) and #5 (backward) through their autograd
+    wrapper (nicer_fused_color / nicer_fused_geo) against fused_trunks_plain
+    and fused_trunks_plain_bwd at the full model width (chip_smoke.py's
+    inputs, fewer samples)."""
+    import chip_smoke
+    I = chip_smoke.trunks_inputs(torch, cuda, n=3000)
+    mcfg, g_occ, g_rgb, Bs = I["mcfg"], I["g_occ"], I["g_rgb"], I["Bs"]
+    geo, col = I["geo"], (I["col"] if with_color else [])
+    p, cg, cc = I["p"], I["cg"], I["cc"]
+    args = (p, cg, cc if with_color else None, Bs, geo, col, mcfg.n_blocks,
+            mcfg.skip, with_color)
+    before = dict(_cuda.LAUNCHES)
+    occ, rgb, dp, dcg, dcc, dcol = chip_smoke.trunks_via_wrapper(
+        I, with_color, need_dp)
+    # through the autograd wrapper: one launch of each kernel
+    assert _cuda.LAUNCHES["trunks_fwd"] == before.get("trunks_fwd", 0) + 1
+    assert _cuda.LAUNCHES["trunks_bwd"] == before.get("trunks_bwd", 0) + 1
+    occ0, rgb0 = FM.fused_trunks_plain(*args)
+    dp0, dcg0, dcc0, dcol0 = FM.fused_trunks_plain_bwd(
+        *args[:6], g_occ, g_rgb, *args[6:], need_dp, with_color)
+    torch.cuda.synchronize()
+    _values_close(occ, occ0, "occ")
+    _close_rel(dcg, dcg0, "dcg")
+    if need_dp:
+        _close_rel(dp, dp0, "dp")
+    else:
+        assert dp is None or not dp.any()
+    if with_color:
+        _values_close(rgb, rgb0, "rgb")
+        _close_rel(dcc, dcc0, "dcc")
+        for i, (a, b) in enumerate(zip(dcol, dcol0)):
+            _close_rel(a, b, f"dcol[{i}]")
+    # the bare launcher counts no launch
+    FM.launch_trunks(*args, backward=False)
+    assert _cuda.LAUNCHES["trunks_fwd"] == before.get("trunks_fwd", 0) + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("use_affine,wmode", [(False, 0), (True, 0),
+                                              (False, 1)])
+def test_trackloss_kernels_match_plain(cuda, use_affine, wmode):
+    """Kernels #8 (forward) and #9 (backward) under autograd against
+    trackloss_plain differentiated by autograd, at the full model width
+    (chip_smoke.py's inputs, fewer rays)."""
+    import chip_smoke
+    I = chip_smoke.trackloss_inputs(torch, cuda, n=500)
+    mcfg, S, K = I["mcfg"], I["S"], I["K"]
+    rays, aff, rowc, cfeat = I["rays"], I["aff"], I["rowc"], I["cfeat"]
+    geo, col, Bs = I["geo"], I["col"], I["Bs"]
+    g_depth, g_color = I["g_depth"], I["g_color"]
+    static = (mcfg.n_blocks, mcfg.skip, S, K, mcfg.c_dim, 0.1, wmode,
+              use_affine, not use_affine)
+    outs = []
+    for fn in (FM.nicer_fused_trackloss, FM.trackloss_plain):
+        r = rays.clone().requires_grad_()
+        a = aff.clone().requires_grad_()
+        d, v, c = fn(r, a, rowc, cfeat, geo, col, Bs, *static)
+        torch.autograd.backward([d, c], [g_depth, g_color])
+        outs.append((d.detach(), v.detach(), c.detach(), r.grad,
+                     a.grad if a.grad is not None else torch.zeros_like(a)))
+    torch.cuda.synchronize()
+    (dk, vk, ck, drk, dak), (dp_, vp, cp, drp, dap) = outs
+    for name, x, y in (("depth", dk, dp_), ("var", vk, vp),
+                       ("color", ck, cp)):
+        _values_close(x, y, name)
+    # d rays: 1/(d^2+1e-10) enters through its square, so f32 rounding is
+    # amplified by the inputs' conditioning; the kernel is held against the
+    # plain version in float64, in Frobenius norm and entry by entry, with
+    # the f32 plain version's own distance as the yardstick
+    print("drays readings", use_affine, wmode,
+          chip_smoke.check_drays(I, static, drk, drp))
+    if use_affine:
+        _close_rel(dak, dap, "daff")
+    else:
+        assert not dak.any()
