@@ -20,6 +20,12 @@ Phases, each printed as one JSON line when it starts and when it ends:
   trackloss  fused tracker-render kernel pair against trackloss_plain
            (autograd) at the tracker's 2000 rays: sigmoid tail, exposure
            affine, exp weighting; kernel / plain times
+  composite  fused-composite kernel #6 through its autograd wrapper
+           (nicer_fused_composite) against composite_plain under autograd,
+           and kernel #7 (fused_comp_bwd) against the composition it
+           replaces (composite_bwd_plain), at the mesh mapping path's shape
+           (4000 rays x 5 samples): colour with the sigmoid tail, colour
+           raw (encode_exposure), geometry only; kernel / plain times
   slam     the port's CLI entry point on configs/Synthetic/synth_tpu.yaml,
            cut to 10 frames, output in a temporary directory; ATE, per-frame
            times and every kernel's launches during the run (with
@@ -27,6 +33,13 @@ Phases, each printed as one JSON line when it starts and when it ends:
   slam_fused  the same run with tracking.fused_loss on and
            model.fused_composite off: the fused tracker render and union
            mapping on the fused trunks
+  slam_mesh  the same run with mesh: "dp1" inside a world-1 NCCL process
+           group that the smoke opens and closes: the dp-mesh tracker and
+           union mapping through the fused composite (kernels #6, #5)
+  repeat   the deterministic scatter-add (ops.interpolate.index_add_rows)
+           three times on the same inputs, bitwise; then every SLAM run of
+           this process again, whose trajectory and ATE must equal the
+           first run's bitwise
   kernels  one JSON line describing every ported kernel
 
 The last line is {"ok": true, "device": {...}}, printed only when every
@@ -47,7 +60,8 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ["device", "build", "topk", "maploss", "trunks", "trackloss",
-          "slam", "slam_fused", "kernels"]
+          "composite", "slam", "slam_fused", "slam_mesh", "repeat",
+          "kernels"]
 
 # H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -768,10 +782,234 @@ def run_trackloss(results: dict) -> dict:
             "cases": cases}
 
 
+# flops per sample of the occupancy compositor, counted from comp_fwd
+# (occ forcing, sigmoid, transmittance, weights, depth, colour, variance,
+# the rgb sigmoid) and comp_bwd (the dw terms, d rgb, the sigmoid chain,
+# the suffix loop, d occ); small beside the trunks' ~0.2 MFLOP
+COMP_FWD_FLOPS = 34
+COMP_BWD_FLOPS = 42
+COMP_COEF = 0.1                 # mapping.sigmoid_coef_mapper
+
+
+def composite_work(mcfg, n_r, S, with_color, backward, need_wgrads,
+                   geo_numel, col_numel):
+    """(bytes, flops) of kernel #6 (forward) or #7 (backward) on n_r rays of
+    S samples, the trunks counted as trunks_work counts them: #6 reads the
+    sample rows (p, c_geo, c_col), z, pm and the weights, runs both trunk
+    forwards and the compositor, and writes depth, var, colour per ray and
+    occ, rgb per sample; #7 reads dD, dV, dC instead of writing the ray
+    outputs, adds the compositor backward, the trunk cotangents (no
+    position cotangent) and, with need_wgrads and colour, the colour core's
+    weight gradients, and writes dc_geo, dc_col (and those gradients)."""
+    n = n_r * S
+    C = mcfg.c_dim
+    nc = 2 if with_color else 1
+    fg, cg = trunk_flops(mcfg, mcfg.geo_embed, mcfg.hidden_geo, 1, False)
+    fc, cc = (trunk_flops(mcfg, 2 * mcfg.col_embed, mcfg.hidden_col, 3,
+                          False) if with_color else (0, 0))
+    per = fg + fc + COMP_FWD_FLOPS
+    cw = col_numel if with_color else 0
+    nbytes = 4 * (n * (3 + C * nc + 2) + geo_numel + cw)
+    if not backward:
+        return nbytes + 4 * (5 * n_r + 4 * n), float(per) * n
+    wg = need_wgrads and with_color
+    per += cg + cc + COMP_BWD_FLOPS + (fc if wg else 0)
+    nbytes += 4 * (5 * n_r + n * C * nc + (cw if wg else 0))
+    return nbytes, float(per) * n
+
+
+def composite_inputs(torch, dev, n_r=4000, S=5):
+    """The union mapping path's shape under a mesh (mapping.pixels 4000 rays
+    x N_surface 5 samples) at the full model width, random weights from a
+    seed: rays from the origin, samples 1-3 m along them around the
+    surface, a tenth of the samples padded (pm = 0), per-ray cotangents."""
+    from hpslam_tpu_torch.models import decoder as Dec
+    from hpslam_tpu_torch.ops import fused_mlp as FM
+    mcfg = Dec.ModelConfig()
+    g = torch.Generator(device=dev).manual_seed(5)
+    params = Dec.init_nicer(g, mcfg, dev)
+    n, C = n_r * S, mcfg.c_dim
+    rd = torch.randn((n_r, 3), generator=g, device=dev)
+    rd = rd / torch.linalg.norm(rd, dim=1, keepdim=True)
+    z = (1.0 + 2.0 * torch.rand((n_r, 1), generator=g, device=dev)) \
+        * torch.linspace(0.96, 1.04, S, device=dev)
+    gd, cd = params["geo_fine"], params["col_fine"]
+    return dict(
+        mcfg=mcfg, S=S, z=z.contiguous(),
+        p=(rd[:, None, :] * z[..., None]).reshape(n, 3).contiguous(),
+        pm=(torch.rand((n_r, S), generator=g, device=dev) > 0.1).float(),
+        cg=0.1 * torch.randn((n, C), generator=g, device=dev),
+        cc=0.1 * torch.randn((n, C), generator=g, device=dev),
+        dD=torch.randn((n_r,), generator=g, device=dev),
+        dV=torch.randn((n_r,), generator=g, device=dev),
+        dC=torch.randn((n_r, 3), generator=g, device=dev),
+        geo=[w.contiguous() for w in FM.flatten_core(gd["core"])],
+        col=[w.contiguous() for w in FM.flatten_core(cd["core"])],
+        Bs=(gd["B"].contiguous(), cd["B"].contiguous()))
+
+
+def composite_autograd(I, fn, with_color, sigmoid_rgb):
+    """(depth, var, color, c_geo.grad, c_col.grad, colour-core weight
+    grads) of ``fn`` ("wrapper": nicer_fused_composite, kernel #6 forward
+    and the _ncomp_bwd backward; "plain": composite_plain under autograd)
+    for the per-ray cotangents dD, dV, dC.  Through the wrapper the
+    geometry core must get no gradient."""
+    import torch
+    from hpslam_tpu_torch.ops import fused_mlp as FM
+    mcfg, S = I["mcfg"], I["S"]
+    cg = I["cg"].clone().requires_grad_()
+    cc = I["cc"].clone().requires_grad_()
+    geo = [w.clone().requires_grad_() for w in I["geo"]]
+    col = [w.clone().requires_grad_() for w in I["col"]]
+    if fn == "wrapper":
+        d, v, c = FM.nicer_fused_composite(
+            cg, cc if with_color else None, I["p"], I["z"], I["pm"], geo,
+            col, I["Bs"], mcfg.n_blocks, mcfg.skip, with_color, S,
+            COMP_COEF, True, sigmoid_rgb)
+    else:
+        d, v, c, _occ, _rgb = FM.composite_plain(
+            I["p"], cg, cc if with_color else None, I["z"], I["pm"],
+            I["Bs"], geo, col, mcfg.n_blocks, mcfg.skip, with_color, S,
+            COMP_COEF, sigmoid_rgb)
+    torch.autograd.backward([d, v, c], [I["dD"], I["dV"], I["dC"]])
+    if fn == "wrapper" and any(w.grad is not None for w in geo):
+        raise AssertionError("composite: the geometry core got a gradient")
+    zero = torch.zeros_like
+    return (d.detach(), v.detach(), c.detach(), cg.grad,
+            cc.grad if cc.grad is not None else zero(cc),
+            [w.grad if w.grad is not None else zero(w) for w in col])
+
+
+def run_composite(results: dict) -> dict:
+    """Kernel #6 through nicer_fused_composite under autograd against
+    composite_plain under autograd (depth, var, colour and the gradients of
+    c_geo, c_col and the colour core), and kernel #7 through fused_comp_bwd
+    against composite_bwd_plain, on the same inputs: colour with the
+    sigmoid tail (the SLAM run's encode_exposure False), colour raw
+    (encode_exposure), geometry only.  The bare launcher is timed."""
+    import torch
+    from hpslam_tpu_torch import _cuda
+    from hpslam_tpu_torch.ops import fused_mlp as FM
+    dev = torch.device("cuda")
+    I = composite_inputs(torch, dev)
+    mcfg, S = I["mcfg"], I["S"]
+    n_r = I["z"].shape[0]
+    cases = []
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    main = None
+    for with_color, sigmoid_rgb in ((True, True), (True, False),
+                                    (False, False)):
+        before = dict(_cuda.LAUNCHES)
+        k = composite_autograd(I, "wrapper", with_color, sigmoid_rgb)
+        for name in ("composite_fwd", "trunks_bwd"):
+            if _cuda.LAUNCHES[name] != before.get(name, 0) + 1:
+                raise AssertionError(f"composite: the wrapper did not "
+                                     f"launch {name} once")
+        p = composite_autograd(I, "plain", with_color, sigmoid_rgb)
+        args = (I["p"], I["cg"], I["cc"] if with_color else None, I["z"],
+                I["pm"], I["Bs"], I["geo"], I["col"] if with_color else [],
+                mcfg.n_blocks, mcfg.skip, with_color, S, COMP_COEF,
+                sigmoid_rgb)
+        cot = (I["dD"], I["dV"], I["dC"])
+        k7 = FM.fused_comp_bwd(*args[:8], *cot, *args[8:13], True,
+                               sigmoid_rgb)
+        p7 = FM.composite_bwd_plain(*args[:8], *cot, *args[8:13], True,
+                                    sigmoid_rgb)
+        torch.cuda.synchronize()
+        pairs = [("depth", k[0], p[0], "fwd"), ("var", k[1], p[1], "fwd"),
+                 ("dcg", k[3], p[3], "bwd"), ("k7 dcg", k7[0], p7[0], "bwd")]
+        if with_color:
+            pairs += [("color", k[2], p[2], "fwd"), ("dcc", k[4], p[4], "bwd"),
+                      ("k7 dcc", k7[1], p7[1], "bwd")]
+            pairs += [(f"dcol{i}", a, b, "bwd")
+                      for i, (a, b) in enumerate(zip(k[5], p[5]))]
+            pairs += [(f"k7 dcol{i}", a, b, "bwd")
+                      for i, (a, b) in enumerate(zip(k7[2], p7[2]))]
+        elif k[2].any() or k7[1].any():
+            raise AssertionError("composite: colour without colour")
+        stats = {}
+        for name, a, b, which in pairs:
+            mx, fro = compare_grads(name, a, b, "composite")
+            worst[which] = max(worst[which], mx)
+            stats[name] = fro
+        t6 = cuda_time_ms(lambda: FM.launch_composite(*args))
+        t7 = cuda_time_ms(lambda: FM.launch_composite(
+            *args, backward=True, dD=I["dD"], dV=I["dV"], dC=I["dC"],
+            need_wgrads=True), iters=10)
+
+        def plain_fwd():
+            with torch.no_grad():
+                return FM.composite_plain(*args)
+        tp6 = cuda_time_ms(plain_fwd, iters=10)
+        tp7 = cuda_time_ms(lambda: FM.composite_bwd_plain(
+            *args[:8], *cot, *args[8:13], True, sigmoid_rgb), iters=5)
+        numel = [sum(t.numel() for t in I["geo"]) + I["Bs"][0].numel(),
+                 sum(t.numel() for t in I["col"]) + I["Bs"][1].numel()]
+        b6 = bound_ms(*composite_work(mcfg, n_r, S, with_color, False, False,
+                                      *numel))
+        b7 = bound_ms(*composite_work(mcfg, n_r, S, with_color, True, True,
+                                      *numel))
+        case = {"with_color": with_color, "sigmoid_rgb": sigmoid_rgb,
+                "n_rays": n_r, "S": S, "fwd_ms": t6, "fwd_plain_ms": tp6,
+                "fwd_bound_ms": b6[0], "bwd_ms": t7, "bwd_plain_ms": tp7,
+                "bwd_bound_ms": b7[0], "bound_by": b7[1],
+                "rel_fro_max": max(stats.values())}
+        cases.append(case)
+        if main is None:
+            main = (case, b6, b7)
+    _cuda.reset_launches()
+    case, b6, b7 = main
+    results["composite_fwd"] = {
+        "max_abs_err": worst["fwd"], "ms": case["fwd_ms"],
+        "plain_ms": case["fwd_plain_ms"], "bound_ms": b6[0],
+        "bound_by": b6[1], "library_ms": None}
+    results["composite_bwd"] = {
+        "max_abs_err": worst["bwd"], "ms": case["bwd_ms"],
+        "plain_ms": case["bwd_plain_ms"], "bound_ms": b7[0],
+        "bound_by": b7[1], "library_ms": None}
+    return {"tolerance": {"grad_rel_fro": GRAD_REL_FRO,
+                          "grad_elem": [GRAD_ELEM_TOL, GRAD_ELEM_FRAC]},
+            "cases": cases}
+
+
+def run_scatter_repeat() -> dict:
+    """The deterministic scatter-add of the feature gathers' backward
+    (index_add_rows) at the union mapping path's shape (4000 rays x 8 union
+    slots into 2000 feature rows of 64 channels, ~16 sources per row):
+    three runs bitwise equal, its distance from a float64 index_add_, and
+    whether torch's atomic index_add_ repeats on the same inputs; times of
+    both."""
+    import torch
+    from hpslam_tpu_torch.ops import interpolate as IT
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
+    rows = 2000
+    idx = torch.randint(0, rows, (32000,), generator=g, device=dev)
+    src = torch.randn((32000, 64), generator=g, device=dev)
+    outs = [IT.index_add_rows(rows, idx, src) for _ in range(3)]
+    atomic = [torch.zeros((rows, 64), device=dev).index_add_(0, idx, src)
+              for _ in range(3)]
+    ref = torch.zeros((rows, 64), dtype=torch.float64, device=dev)
+    ref.index_add_(0, idx, src.double())
+    cpu = torch.zeros((rows, 64)).index_add_(0, idx.cpu(), src.cpu())
+    out = {"repeats_bitwise": all(torch.equal(outs[0], o) for o in outs),
+           "equals_cpu_index_add_bitwise": torch.equal(outs[0].cpu(), cpu),
+           "max_abs_err_vs_f64": float((outs[0].double() - ref).abs().max()),
+           "atomic_index_add_repeats_bitwise": all(
+               torch.equal(atomic[0], a) for a in atomic),
+           "ms": cuda_time_ms(lambda: IT.index_add_rows(rows, idx, src)),
+           "atomic_ms": cuda_time_ms(lambda: torch.zeros(
+               (rows, 64), device=dev).index_add_(0, idx, src))}
+    if not out["repeats_bitwise"]:
+        raise AssertionError(f"index_add_rows does not repeat: {out}")
+    return out
+
+
 # kernel-name fragments of the device-time groups that --profile reports
 PROFILE_GROUPS = [
     ("maploss kernels", ("ml_", "loss_reduce")),
     ("trunks kernel", ("tr_samples",)),
+    ("composite kernels", ("cp_",)),
     ("trackloss kernels", ("tl_",)),
     ("weight-gradient passes (kernels 3, 5)", ("wgrad_",)),
     ("topk_rows kernel", ("topk_rows",)),
@@ -837,18 +1075,46 @@ SLAM_RUNS = {
                    "model:\n  fused_composite: False\n",
                    ("topk_rows", "trunks_fwd", "trunks_bwd", "trackloss_fwd",
                     "trackloss_bwd"), ("maploss_bwd", "maploss_fwd")),
+    # the dp-mesh path on one card: the tracker's dp branch (no fused
+    # render under a mesh) and union mapping through the fused composite
+    # (kernel #6, its backward on kernel #5), never the mapping loss
+    "slam_mesh": ('mesh: "dp1"\n',
+                  ("topk_rows", "composite_fwd", "trunks_bwd"),
+                  ("maploss_bwd", "maploss_fwd", "trackloss_fwd",
+                   "trackloss_bwd", "trunks_fwd")),
 }
 
 
-def run_slam(out_dir: str, name: str = "slam",
-             profile: bool = False) -> dict:
+@contextlib.contextmanager
+def world1_group(name: str):
+    """For slam_mesh: a world-1 NCCL process group on this card (an
+    in-process store, no launcher), so that the mesh's collectives run on
+    the card; destroyed afterwards."""
+    if name != "slam_mesh":
+        yield
+        return
+    import torch
+    import torch.distributed as dist
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def run_slam(out_dir: str, name: str = "slam", profile: bool = False,
+             tag: str = ""):
     """The 10-frame SLAM run through the port's CLI entry point, with the
     config additions of SLAM_RUNS[name]; with ``profile`` the same run is
     repeated under torch.profiler (the first run is its warm-up) and its
-    summary returned under "profile"."""
+    summary returned under "profile".  Returns (summary, estimated
+    trajectory from the run's last checkpoint)."""
     import torch
     from hpslam_tpu_torch import _cuda
     from hpslam_tpu_torch import run as R
+    from hpslam_tpu_torch.utils.logger import (latest_checkpoint,
+                                               load_checkpoint)
     work = tempfile.mkdtemp(prefix="hpslam_smoke_")
     try:
         cfg_path = os.path.join(work, "smoke.yaml")
@@ -859,16 +1125,19 @@ def run_slam(out_dir: str, name: str = "slam",
                     "tracking:\n  vis_freq: 1000\n"
                     "mapping:\n  vis_freq: 1000\n"
                     "verbose: False\n" + SLAM_RUNS[name][0])
-        _cuda.reset_launches()
-        torch.cuda.synchronize()
         argv = [cfg_path, "--input_folder", os.path.join(work, "in")]
-        results, summary = R.run(argv + ["--output",
-                                         os.path.join(work, "out")])
-        torch.cuda.synchronize()
-        launches = dict(_cuda.LAUNCHES)
-        prof = (profile_run(lambda: R.run(
-            argv + ["--output", os.path.join(work, "prof")])[1])
-            if profile else None)
+        with world1_group(name):
+            _cuda.reset_launches()
+            torch.cuda.synchronize()
+            results, summary = R.run(argv + ["--output",
+                                             os.path.join(work, "out")])
+            torch.cuda.synchronize()
+            launches = dict(_cuda.LAUNCHES)
+            prof = (profile_run(lambda: R.run(
+                argv + ["--output", os.path.join(work, "prof")])[1])
+                if profile else None)
+        traj = load_checkpoint(latest_checkpoint(os.path.join(
+            work, "out")))["estimate_c2w_list"]
     finally:
         shutil.rmtree(work, ignore_errors=True)
     ate = results["absolute_translational_error.rmse"]
@@ -877,7 +1146,7 @@ def run_slam(out_dir: str, name: str = "slam",
            "n_frames": summary["n_frames"], "launches": launches}
     if prof is not None:
         out["profile"] = prof
-    with open(os.path.join(out_dir, f"{name}_summary.json"), "w") as f:
+    with open(os.path.join(out_dir, f"{name}{tag}_summary.json"), "w") as f:
         json.dump(out, f, indent=1)
     if not ate < ATE_MAX_M:
         raise AssertionError(f"ATE RMSE {ate} m above {ATE_MAX_M} m")
@@ -890,6 +1159,34 @@ def run_slam(out_dir: str, name: str = "slam",
         if launches.get(k, 0) != 0:
             raise AssertionError(f"kernel {k} was launched on the {name} "
                                  "path")
+    return out, traj
+
+
+def run_repeat(out_dir: str, first: dict) -> dict:
+    """The scatter check, then each SLAM run of ``first`` ({name: (summary,
+    trajectory)}) again in this process: the estimated trajectories and
+    the ATEs must be bitwise equal."""
+    import numpy as np
+    out = {"scatter": run_scatter_repeat()}
+    bad = []
+    for name, (s0, traj0) in first.items():
+        s1, traj1 = run_slam(out_dir, name, tag="_repeat")
+        same = bool(np.array_equal(traj0, traj1))
+        out[name] = {
+            "trajectory_bitwise_equal": same,
+            "ate_bitwise_equal": s0["ate_rmse_m"] == s1["ate_rmse_m"],
+            "ate_rmse_m": [s0["ate_rmse_m"], s1["ate_rmse_m"]],
+            "max_abs_pose_diff": float(np.abs(traj0 - traj1).max()),
+            "first_frame_that_differs": next(
+                (i for i in range(len(traj0))
+                 if not np.array_equal(traj0[i], traj1[i])), None),
+            "track_ms_mean": s1["track_ms_mean"],
+            "map_ms_mean": s1["map_ms_mean"]}
+        if not (same and out[name]["ate_bitwise_equal"]):
+            bad.append(name)
+    if bad:
+        emit({"repeat": out})
+        raise AssertionError(f"runs do not repeat: {bad}")
     return out
 
 
@@ -908,6 +1205,10 @@ KERNELS = [
      "hpslam_tpu/ops/fused_mlp.py:1565"),
     ("trackloss_bwd", "hpslam_tpu_torch/csrc/trackloss.cu",
      "hpslam_tpu/ops/fused_mlp.py:1581"),
+    ("composite_fwd", "hpslam_tpu_torch/csrc/composite.cu",
+     "hpslam_tpu/ops/fused_mlp.py:379"),
+    ("composite_bwd", "hpslam_tpu_torch/csrc/composite.cu",
+     "hpslam_tpu/ops/fused_mlp.py:418"),
 ]
 
 
@@ -960,16 +1261,24 @@ def main(argv=None) -> int:
     if "trackloss" in phases:
         with phase("trackloss", seconds):
             emit(run_trackloss(results))
+    if "composite" in phases:
+        with phase("composite", seconds):
+            emit(run_composite(results))
     # each kernel's launches come from the first run that launches it
     launches = {}
-    for name in ("slam", "slam_fused"):
+    first_runs = {}
+    for name in ("slam", "slam_fused", "slam_mesh"):
         if name in phases:
             with phase(name, seconds):
-                s = run_slam(out_dir, name, args.profile)
+                s, traj = run_slam(out_dir, name, args.profile)
+                first_runs[name] = (s, traj)
                 for k, v in s["launches"].items():
                     if not launches.get(k):
                         launches[k] = v
                 emit(s)
+    if "repeat" in phases:
+        with phase("repeat", seconds):
+            emit({"repeat": run_repeat(out_dir, first_runs)})
     if "kernels" in phases:
         with phase("kernels", seconds):
             rows = []

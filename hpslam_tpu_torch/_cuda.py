@@ -62,6 +62,16 @@ SIGNATURES = {
           _P, _P, _P, _P, _P, _P, _P, _P,        # g_depth .. daff
           _P], _I),                              # stream
     ],
+    "composite": [
+        ("hp_composite_scratch_floats", [_I] * 8, _L),
+        ("hp_composite",
+         [_P, _P, _P, _P, _P, _P, _P, _P, _P,    # p cg cc z pm Bg Bc gw cw
+          _I, _I, _I, _I, _I, _I, _I, _I, _I,    # n_r S C emb/hid nb skip
+          _I, _F, _I, _I, _I,                    # with_color coef flags
+          _P, _P, _P,                            # dD dV dC
+          _P, _P, _P, _P, _P, _P,                # scratch depth .. rgb
+          _P, _P, _P, _P, _I, _P], _I),          # dcg dcc dcw wpart ws st
+    ],
 }
 
 LAUNCHES: Counter = Counter()

@@ -7,14 +7,22 @@ of the scene to the rows the cache can touch, and ``map_scan``: the
 level's geometry-then-colour iterations.  With ``model.fused_composite``
 (the default) each iteration is one call of the mapping-loss kernel
 (``ops.fused_mlp.nicer_fused_maploss``, kernel #3 under autograd) plus the
-feature-row gather, its index_add_ backward and Adam; without it, the union
-render (``render_union``: union-slot feature mix, the fused trunks of
-kernels #4-5 or the plain trunks, the compositor) and the masked L1 losses
-run as tensor ops around the trunk kernels.
+feature-row gather, its deterministic scatter-add backward and Adam;
+without it, the union render (``render_union``: union-slot feature mix,
+the fused trunks of kernels #4-5 or the plain trunks, the compositor) and
+the masked L1 losses run as tensor ops around the trunk kernels.
+
+Under a device mesh (``parallel.mesh``, dp ranks) the union cache's query
+search is dp-sharded and the cache is then gathered whole on every rank;
+each ``map_scan`` iteration renders this rank's dp slice of the rays
+through ``render_union`` (the mapping-loss kernel is single-device, as in
+the reference), where ``model.fused_composite`` takes the fused composite
+(kernel #6 forward, kernel #5 in its backward), and the gradients and the
+two loss terms are summed over dp before Adam.
 
 Not ported (raise NotImplementedError): bundle adjustment (mapping.BA with
-more than four keyframes), the per-sample (non-union) mapping path that
-rel-pos encodings need, and multi-device meshes.
+more than four keyframes) and the per-sample (non-union) mapping path that
+rel-pos encodings need.
 """
 from __future__ import annotations
 
@@ -32,6 +40,7 @@ from .ops import interpolate as IT
 from .ops import knn as Knn
 from .ops import optim as Opt
 from .ops import sampling as Samp
+from .parallel.mesh import all_gather_rows, all_reduce_grads, shard_batch
 from .renderer import RenderConfig
 
 
@@ -85,7 +94,7 @@ def build_pixel_union_cache(gen: torch.Generator, depths, c2ws, pools,
                             W: int, fx, fy, cx, cy, near_surface: float,
                             far_surface: float, min_nn: int, weighting: str,
                             colors=None, fix_interval: bool = False,
-                            knn_probe: int = 16):
+                            knn_probe: int = 16, mesh=None):
     """Union-dedup pixel cache over the F window frames.
 
     Per cached pixel: uids (u_max,) — the union of its S*k neighbour ids,
@@ -93,7 +102,9 @@ def build_pixel_union_cache(gen: torch.Generator, depths, c2ws, pools,
     in sample-major order, padding = capacity); Wm (S, u_max) per-sample
     L1-renormalised weights over the union; pmask (S,) sample-has-
     neighbours.  Plus the flat per-pixel phase constants.  The union
-    ranking runs through kernel 1 (top-u of -score).
+    ranking runs through kernel 1 (top-u of -score).  Under a mesh each
+    rank searches and unionizes its dp slice of the pixels, then the
+    per-pixel rows are gathered whole on every rank.
     Returns (cache_pix (F, P), uids (F, P, u), Wm (F, P, S, u),
     pmask (F, P, S), const dict)."""
     F = depths.shape[0]
@@ -119,15 +130,17 @@ def build_pixel_union_cache(gen: torch.Generator, depths, c2ws, pools,
     const = {"z": z.reshape(FP, S), "pts": pts.reshape(FP, S, 3),
              "rays_d": rays_d.reshape(FP, 3), "d_gt": d.reshape(FP),
              "c_gt": c_gt.reshape(FP, 3)}
-    qf = pts.reshape(-1, 3)
+    # dp-sharded by whole pixels (a no-op without a mesh)
+    pq, rq_l = shard_batch(mesh, pts.reshape(FP, S, 3), rq.reshape(FP))
+    qf = pq.reshape(-1, 3)
     D, I = Knn.knn_tiles(qf, *tile_index, k=k, probe=knn_probe)
-    rq_rep = torch.repeat_interleave(rq.reshape(-1), S)
+    rq_rep = torch.repeat_interleave(rq_l, S)
     w, has = IT.interp_weights(D, I, qf, None, rq_rep, min_nn, weighting,
                                diff_pos=False)
     w = w[..., 0]                                                 # (FPS, k)
     SK = S * k
-    ids = I.reshape(FP, SK)
-    wf = w.reshape(FP, SK)
+    ids = I.reshape(-1, SK)
+    wf = w.reshape(-1, SK)
     iota = torch.arange(SK, device=dev)
     eq = ids[:, :, None] == ids[:, None, :]                       # (R,SK,SK)
     tw = torch.sum(torch.where(eq, torch.abs(wf)[:, None, :], 0.0), dim=2)
@@ -140,10 +153,20 @@ def build_pixel_union_cache(gen: torch.Generator, depths, c2ws, pools,
     uids_raw = torch.gather(ids, 1, sel)
     uids = torch.where(twk > 0, uids_raw, torch.full_like(uids_raw, capacity))
     match = (ids[:, None, :] == uids_raw[:, :, None]) & (twk > 0)[..., None]
-    Wm = (match.to(wf.dtype) * wf[:, None, :]).reshape(FP, u_max, S, k)
+    Wm = (match.to(wf.dtype) * wf[:, None, :]).reshape(-1, u_max, S, k)
     Wm = torch.sum(Wm, dim=3).permute(0, 2, 1)                   # (R, S, u)
     rs = torch.sum(torch.abs(Wm), dim=2, keepdim=True)
     Wm = torch.where(rs > 1e-12, Wm / torch.clamp(rs, min=1e-12), 0.0)
+    if mesh is not None:
+        # every rank's rows, whole, in one gather: [Wm | has | uids] as f32
+        # (ids as exact f32 values, as pack_union_cache stores them)
+        R = uids.shape[0]
+        rows = all_gather_rows(mesh, torch.cat([
+            Wm.reshape(R, S * u_max), has.reshape(R, S).float(),
+            Knn.pack_ids(uids)], 1), FP)
+        Wm = rows[:, :S * u_max]
+        has = rows[:, S * u_max:S * u_max + S] > 0.5
+        uids = Knn.unpack_ids(rows[:, S * u_max + S:])
     return (idx, uids.reshape(F, P, u_max), Wm.reshape(F, P, S, u_max),
             has.reshape(F, P, S), const)
 
@@ -194,15 +217,18 @@ def map_scan(params, mcfg: Dec.ModelConfig, rcfg: RenderConfig, opt_params,
              opt_state, gen: torch.Generator, depths, cache_pix,
              cache_packed, u_sz: int, expo_stack, lr_table, F_actual: int,
              level: str, n_rays: int, geo_iters: int, use_exposure: bool,
-             opt_color_dec: bool, w_color: float):
+             opt_color_dec: bool, w_color: float, mesh=None):
     """One level phase of the mapping schedule on the union path.
 
     opt_params: {'feat' (U, 2C) packed [geo | col] table, optional 'dec'
     (the level's colour decoder tree), optional 'expo_feat'}.
     lr_table: (n_iters, 4) per-iteration LRs [decoders, geo, col, BA].
+    mesh: optional ``parallel.mesh.Mesh``: each iteration's rays are
+    dp-sharded, gradients and losses summed over dp (module docstring).
     Returns (opt_params, opt_state, losses (n_iters, 2) [geo, color])."""
     dev = cache_packed.device
-    use_fused_loss = mcfg.fused_composite and Dec.fused_usable(mcfg)
+    use_fused_loss = (mcfg.fused_composite and Dec.fused_usable(mcfg)
+                      and mesh is None)
     n_iters = lr_table.shape[0]
     F_max = depths.shape[0]
     P = cache_pix.shape[1]
@@ -238,7 +264,7 @@ def map_scan(params, mcfg: Dec.ModelConfig, rcfg: RenderConfig, opt_params,
     def col_dec_of(op):
         return op["dec"] if "dec" in op else params[f"col_{level}"]
 
-    def exposure_sel(op, dec):
+    def exposure_sel(op, dec, fid):
         ef = expo_stack.clone()
         if "expo_feat" in op:
             ef = torch.cat([ef[:F_actual - 1], op["expo_feat"][None],
@@ -250,10 +276,12 @@ def map_scan(params, mcfg: Dec.ModelConfig, rcfg: RenderConfig, opt_params,
 
     def render_union(col_dec, with_color, row, feat, uids):
         """Union-cache render without the loss kernel: the union-slot
-        feature mix of the packed row, the trunks (fused where
-        fused_usable; sample positions are phase constants, so no dp),
-        -100 forcing and the compositor.  Returns (depth, color, valid
-        ray)."""
+        feature mix of the packed row, then the fused composite (trunks
+        and compositor, kernel #6) where fused_composite and
+        fused_usable, else the trunks (fused where fused_usable; sample
+        positions are phase constants, so no dp), -100 forcing and the
+        compositor.  Exposure applies outside.  Returns (depth, color,
+        valid ray)."""
         n = row.shape[0]
         z = row[:, o["z"]:o["z"] + S]
         pts = row[:, o["pts"]:o["pts"] + 3 * S].reshape(n * S, 3)
@@ -265,6 +293,15 @@ def map_scan(params, mcfg: Dec.ModelConfig, rcfg: RenderConfig, opt_params,
         c_geo = c_all[:, :C]
         geo_dec = params[f"geo_{level}"]
         fused = Dec.fused_usable(mcfg)
+        vmask = Dec.valid_ray_mask(pmf, S, rcfg.N_surface)
+        if mcfg.fused_composite and fused:
+            depth, _unc, color = FM.nicer_fused_composite(
+                c_geo, c_all[:, C:] if with_color else None, pts, z,
+                row[:, o["pm"]:o["pm"] + S], FM.flatten_core(geo_dec["core"]),
+                FM.flatten_core(col_dec["core"]), (geo_dec["B"], col_dec["B"]),
+                mcfg.n_blocks, mcfg.skip, with_color, S,
+                float(rcfg.sigmoid_coef), True, not mcfg.encode_exposure)
+            return depth, color, vmask
         if with_color:
             if fused:
                 occ, rgb = Dec.fused_color_pair(
@@ -284,9 +321,9 @@ def map_scan(params, mcfg: Dec.ModelConfig, rcfg: RenderConfig, opt_params,
         raw = torch.cat([rgb, occ[:, None]], -1).reshape(n, S, 4)
         depth, _unc, color, _ = Co.raw2outputs(
             raw, z, rays_d, occupancy=rcfg.occupancy, coef=rcfg.sigmoid_coef)
-        return depth, color, Dec.valid_ray_mask(pmf, S, rcfg.N_surface)
+        return depth, color, vmask
 
-    def plain_stage_loss(op, dec, row, feat, uids, d_gt, inside,
+    def plain_stage_loss(op, dec, fid, row, feat, uids, d_gt, inside,
                          with_color):
         """The stage loss around render_union: masked L1 depth loss and,
         on colour stages, the per-frame exposure affine + sigmoid of the
@@ -297,7 +334,7 @@ def map_scan(params, mcfg: Dec.ModelConfig, rcfg: RenderConfig, opt_params,
         if not with_color:
             return gl, gl, torch.zeros((), device=dev)
         if use_exposure:
-            sel = exposure_sel(op, dec)
+            sel = exposure_sel(op, dec, fid)
             color = torch.sigmoid(torch.einsum(
                 "nc,ncd->nd", color, sel[:, :9].reshape(-1, 3, 3))
                 + sel[:, 9:])
@@ -306,7 +343,7 @@ def map_scan(params, mcfg: Dec.ModelConfig, rcfg: RenderConfig, opt_params,
                                    0.0))
         return gl + w_color * cl, gl, cl
 
-    def stage_loss(op, slot, with_color):
+    def stage_loss(op, fid, slot, with_color):
         row = cache_packed[fid * P + slot]
         d_gt = row[:, o["d_gt"]]
         uids = Knn.unpack_ids(row[:, o["uids"]:o["uids"] + u_sz])
@@ -317,12 +354,12 @@ def map_scan(params, mcfg: Dec.ModelConfig, rcfg: RenderConfig, opt_params,
         feat_v = op["feat"] if with_color else op["feat"][:, :C]
         dec = col_dec_of(op)
         if not use_fused_loss:
-            return plain_stage_loss(op, dec, row, feat_v, uids, d_gt, inside,
-                                    with_color)
+            return plain_stage_loss(op, dec, fid, row, feat_v, uids, d_gt,
+                                    inside, with_color)
         uf = IT.gather_rows(feat_v, uids).reshape(n, -1)
         okf = ((d_gt > 0) & inside).float()[:, None]
         use_aff = bool(use_exposure) and with_color
-        aff = (exposure_sel(op, dec) if use_aff
+        aff = (exposure_sel(op, dec, fid) if use_aff
                else torch.zeros((n, 12), device=dev))
         col_flat = [w if w.is_contiguous() else w.contiguous()
                     for w in FM.flatten_core(dec["core"])]
@@ -342,8 +379,12 @@ def map_scan(params, mcfg: Dec.ModelConfig, rcfg: RenderConfig, opt_params,
         slot = torch.randint(0, P, (n_rays,), generator=gen, device=dev)
         opg = Opt.tree_map(lambda t: t.detach().requires_grad_(), op)
         leaves = Opt.tree_leaves(opg)
-        total, gl, cl = stage_loss(opg, slot, with_color)
+        total, gl, cl = stage_loss(opg, *shard_batch(mesh, fid, slot),
+                                   with_color)
         grads = torch.autograd.grad(total, leaves, allow_unused=True)
+        if mesh is not None:
+            grads, gl, cl = all_reduce_grads(mesh, grads, leaves,
+                                             gl.detach(), cl.detach())
         gtree = Opt.tree_unflatten(opg, grads)
         op, ost = Opt.update(gtree, ost, Opt.tree_map(torch.detach, opg),
                              lr_tree_for(lr_table[it]))
@@ -660,7 +701,7 @@ class Mapper:
                     min_nn=slam.mcfg.min_nn_num,
                     weighting=slam.mcfg.weighting, colors=colors,
                     fix_interval=self.rcfg.fix_interval,
-                    knn_probe=knn_probe)
+                    knn_probe=knn_probe, mesh=slam.mesh)
             n_geo = int(np.sum(stage_ids == 0))
             if not ((stage_ids[:n_geo] == 0).all()
                     and (stage_ids[n_geo:] == 1).all()):
@@ -687,7 +728,7 @@ class Mapper:
                 new_params, slam.mcfg, self.rcfg, opt_params, ostate,
                 self.gen, depths, cache_pix, packed, u_max, expo_t,
                 lr_table, F_actual, level, n_rays, n_geo, self.use_exposure,
-                opt_color_dec, self.w_color)
+                opt_color_dec, self.w_color, mesh=slam.mesh)
             C = slam.mcfg.c_dim
             npc.scatter_feats(uniq, opt_params["feat"][:, :C],
                               opt_params["feat"][:, C:], level)

@@ -20,8 +20,15 @@ CUDA tensors, launches its kernel or raises.
 * ``nicer_fused_trackloss`` (reference :1829): the tracker's
   pose-differentiable render, kernels #8 and #9 (``csrc/trackloss.cu``).
   Plain version: ``trackloss_plain``, differentiated by autograd.
-* ``nicer_fused_composite`` (kernels #6-7, reached only by the
-  multi-device path) is not ported and raises.
+* ``nicer_fused_composite`` (reference :825): both trunks and the
+  occupancy compositor per ray, kernel #6 (``csrc/composite.cu``) forward;
+  its backward is the reference's ``_ncomp_bwd``: the compositor backward
+  written out (``comp_bwd``) on the saved occ / rgb, then the trunk
+  backward (kernel #5).  The union mapping path runs it under a device
+  mesh.  Plain version: ``composite_plain``.  Kernel #7, the fully fused
+  backward (``fused_comp_bwd``, reference ``_fused_comp_bwd`` :756), is
+  held against that composition (``composite_bwd_plain``) and, as in the
+  reference, called by no path.
 
 Packed cache row layout of the mapping loss (``mapper.pack_union_cache``),
 S samples, u union slots: [z S | pts 3S | rays_d 3 | d_gt 1 | c_gt 3 |
@@ -698,10 +705,300 @@ def nicer_fused_trackloss(rays, aff, rowc, cfeat, geo_flat, col_flat, Bs,
                             backward=False, **cfg)
 
 
-def nicer_fused_composite(*args, **kwargs):
-    """Trunks + occupancy compositor per ray (the reference's
-    nicer_fused_composite, kernels #6-7): reached only by the multi-device
-    union path, which is not ported."""
-    raise NotImplementedError(
-        "nicer_fused_composite (hpslam_tpu/ops/fused_mlp.py) is not ported "
-        "yet; see ROADMAP.md")
+
+
+# ---------------------------------------------------------------------------
+# Fused composite: nicer_fused_composite (kernel #6 forward, csrc/composite.cu;
+# the reference's _ncomp_bwd backward: comp_bwd, then kernel #5) and the
+# fully fused backward fused_comp_bwd (kernel #7).  Per ray: S sample rows
+# (p, c_geo, c_col) and the ray's z (n_r, S) and pm (n_r, S, 0/1 floats).
+
+def comp_fwd(occ, rgb, z, pm, coef: float):
+    """The reference's in-kernel occupancy compositor (`_comp_fwd` :227):
+    (n, S) occ logits, (n, S, 3) rgb, (n, S) z, (n, S) bool pm -> (depth
+    (n,), var (n,), color (n, 3), residuals for comp_bwd)."""
+    S = occ.shape[1]
+    a = torch.sigmoid(coef * torch.where(pm, occ, -100.0))
+    ts = [torch.ones_like(a[:, 0])]
+    for s in range(1, S):
+        ts.append(ts[-1] * (1.0 - a[:, s - 1] + 1e-10))
+    t = torch.stack(ts, 1)
+    w = a * t
+    wsum = torch.sum(w, 1) + 1e-10
+    color = torch.sum(w[..., None] * rgb, 1) / wsum[:, None]
+    depth = torch.sum(w * z, 1) / wsum
+    dv = z - depth[:, None]
+    var = torch.sum(w * dv * dv, 1)
+    return depth, var, color, (a, t, w, wsum, depth, color)
+
+
+def comp_bwd(res, z, rgb, pm, coef: float, dD, dV, dC):
+    """The reference's hand-written compositor backward (`_comp_bwd` :246):
+    (d occ (n, S), d rgb (n, S, 3)); z and pm are constants."""
+    a, t, w, wsum, depth, color = res
+    S = a.shape[1]
+    dv = z - depth[:, None]
+    dD_eff = dD + dV * (-2.0 * torch.sum(w * dv, 1))
+    dw = (dD_eff[:, None] * dv / wsum[:, None]
+          + torch.sum(dC[:, None, :] * (rgb - color[:, None, :]), -1)
+          / wsum[:, None]
+          + dV[:, None] * dv * dv)
+    drgb = dC[:, None, :] * (w / wsum[:, None])[..., None]
+    da = [None] * S
+    suffix = torch.zeros_like(a[:, 0])            # sum_{u>s} dw_u w_u
+    for s in range(S - 1, -1, -1):
+        da[s] = dw[:, s] * t[:, s] - suffix / (1.0 - a[:, s] + 1e-10)
+        suffix = suffix + dw[:, s] * w[:, s]
+    docc = torch.stack(da, 1) * coef * a * (1.0 - a)
+    return torch.where(pm, docc, 0.0), drgb
+
+
+def comp_cotangents(occ, rgb, z, pm, coef: float, dD, dV, dC,
+                    sigmoid_rgb: bool):
+    """Per-sample trunk cotangents (g_occ (n_r*S,), g_rgb (n_r*S, 3)) from
+    the per-ray ones, on the forward's saved occ and rgb (post-sigmoid with
+    sigmoid_rgb), as `_ncomp_bwd` :863 chains them."""
+    n_r, S = z.shape
+    pmb = pm > 0.5
+    rgb_r = rgb.reshape(n_r, S, 3)
+    *_, res = comp_fwd(occ.reshape(n_r, S), rgb_r, z, pmb, coef)
+    docc, drgb = comp_bwd(res, z, rgb_r, pmb, coef, dD, dV, dC)
+    g_rgb = drgb.reshape(-1, 3)
+    if sigmoid_rgb:
+        g_rgb = g_rgb * rgb * (1.0 - rgb)
+    return docc.reshape(-1), g_rgb
+
+
+def composite_plain(p, c_geo, c_col, z, pm, Bs, geo_flat, col_flat,
+                    n_blocks: int, skip: int, with_color: bool, S: int,
+                    coef: float, sigmoid_rgb: bool):
+    """Plain version of kernel #6: (depth (n_r,), var (n_r,), color
+    (n_r, 3), occ (n_r*S,) logits, rgb (n_r*S, 3), post-sigmoid with
+    sigmoid_rgb and colour, zero without colour)."""
+    occ, rgb = fused_trunks_plain(p, c_geo, c_col, Bs, geo_flat, col_flat,
+                                  n_blocks, skip, with_color)
+    if with_color and sigmoid_rgb:
+        rgb = torch.sigmoid(rgb)
+    n_r = z.shape[0]
+    d, v, c, _ = comp_fwd(occ.reshape(n_r, S), rgb.reshape(n_r, S, 3), z,
+                          pm > 0.5, coef)
+    return d, v, c, occ, rgb
+
+
+def composite_bwd_plain(p, c_geo, c_col, z, pm, Bs, geo_flat, col_flat, dD,
+                        dV, dC, n_blocks: int, skip: int, with_color: bool,
+                        S: int, coef: float, need_wgrads: bool,
+                        sigmoid_rgb: bool):
+    """Plain version of kernel #7, the composition `_ncomp_bwd` runs: the
+    forward, comp_bwd, the sigmoid chain and the trunk backward without dp.
+    Returns (dc_geo, dc_col, colour-core weight grads, zero unless colour
+    and need_wgrads)."""
+    *_, occ, rgb = composite_plain(p, c_geo, c_col, z, pm, Bs, geo_flat,
+                                   col_flat, n_blocks, skip, with_color, S,
+                                   coef, sigmoid_rgb)
+    g_occ, g_rgb = comp_cotangents(occ, rgb, z, pm, coef, dD, dV, dC,
+                                   sigmoid_rgb and with_color)
+    _dp, dcg, dcc, dcol = fused_trunks_plain_bwd(
+        p, c_geo, c_col, Bs, geo_flat, col_flat, g_occ, g_rgb, n_blocks,
+        skip, with_color, False, with_color and need_wgrads)
+    if dcol is None:
+        dcol = [torch.zeros_like(w) for w in col_flat]
+    return dcg, dcc, dcol
+
+
+def launch_composite(p, c_geo, c_col, z, pm, Bs, geo_flat, col_flat,
+                     n_blocks, skip, with_color, S, coef, sigmoid_rgb,
+                     backward: bool = False, dD=None, dV=None, dC=None,
+                     need_wgrads: bool = False):
+    """Run kernel #6 (backward=False): (depth, var, color, occ, rgb); or #7:
+    (dcg, dcc, colour-core weight grads or None)."""
+    Bg, Bc = Bs
+    n_r = z.shape[0]
+    n = n_r * S
+    C = c_geo.shape[1]
+    dev = p.device
+    lib = _cuda.lib("composite")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    hid_g, emb_g = geo_flat[0].shape[1], Bg.shape[1]
+    hid_c = col_flat[0].shape[1] if with_color else hid_g
+    emb_c = 2 * Bc.shape[1] if with_color else emb_g
+    wgrads = bool(backward and with_color and need_wgrads)
+    n_scr = lib.hp_composite_scratch_floats(n, C, emb_g, hid_g, emb_c, hid_c,
+                                            n_blocks, int(with_color))
+    scratch = torch.empty((n_scr,), dtype=torch.float32, device=dev)
+
+    def new(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    occ, rgb = new(n), new(n, 3)
+    d = v = c = dcg = dcc = wpart = None
+    dcol = []
+    wsplits = 1
+    if backward:
+        dcg, dcc = new(n, C), new(n, C)
+        if wgrads:
+            dcol = [torch.empty_like(w) for w in col_flat]
+            wsplits = max(1, -(-n // 1024))
+            wpart = new(wsplits * (emb_c + hid_c) * hid_c)
+    else:
+        d, v, c = new(n_r), new(n_r), new(n_r, 3)
+
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
+
+    rc = lib.hp_composite(
+        p.data_ptr(), c_geo.data_ptr(),
+        (c_col if with_color else c_geo).data_ptr(), z.data_ptr(),
+        pm.data_ptr(), Bg.data_ptr(), (Bc if with_color else Bg).data_ptr(),
+        _ptr_array(geo_flat), _ptr_array(col_flat if with_color
+                                         else geo_flat),
+        n_r, S, C, emb_g, hid_g, emb_c, hid_c, n_blocks, skip,
+        int(with_color), float(coef), int(sigmoid_rgb), int(backward),
+        int(wgrads), ptr(dD), ptr(dV), ptr(dC), scratch.data_ptr(), ptr(d),
+        ptr(v), ptr(c), occ.data_ptr(), rgb.data_ptr(), ptr(dcg), ptr(dcc),
+        _ptr_array(dcol) if dcol else None, ptr(wpart), wsplits, stream)
+    _cuda.check(rc, "composite")
+    if not backward:
+        return d, v, c, occ, rgb
+    return dcg, dcc, (dcol if wgrads else None)
+
+
+def _check_composite(p, c_geo, c_col, z, pm, Bs, geo_flat, col_flat,
+                     n_blocks, with_color, S):
+    _check_trunks(p, c_geo, c_col, Bs, geo_flat, col_flat, n_blocks,
+                  with_color)
+    n_r = z.shape[0]
+    _check("z", z, (n_r, S), p.device, "composite")
+    _check("pm", pm, (n_r, S), p.device, "composite")
+    if p.shape[0] != n_r * S:
+        raise ValueError(f"composite: {p.shape[0]} sample rows for {n_r} "
+                         f"rays of {S} samples")
+    if S > 16:
+        raise ValueError("composite kernel supports S <= 16 (HP_MAXS)")
+
+
+def _composite_args(c_geo, c_col, p, z, pm, Bs, with_color):
+    c_geo, p, z, pm = (t.contiguous() for t in (c_geo, p, z, pm))
+    c_col = c_col.contiguous() if with_color else None
+    return c_geo, c_col, p, z, pm, (Bs[0].contiguous(),
+                                    Bs[1].contiguous() if with_color
+                                    else Bs[1])
+
+
+class _FusedComposite(torch.autograd.Function):
+    """Kernel #6 forward (composite_plain on the CPU); backward as the
+    reference's `_ncomp_bwd`: comp_cotangents on the saved occ / rgb, then
+    the trunk backward without dp (kernel #5, or fused_trunks_plain_bwd on
+    the CPU).  Differentiable in c_geo, c_col and, with need_wgrads and
+    colour, the colour-core weights; p, z, pm, the geometry core and both
+    Bs get no gradient (zero), as in the reference."""
+
+    @staticmethod
+    def forward(ctx, cfg, c_geo, c_col, p, z, pm, Bg, Bc, n_geo, *flat):
+        geo_flat, col_flat = flat[:n_geo], flat[n_geo:]
+        args = (p, c_geo, c_col, z, pm, (Bg, Bc), geo_flat, col_flat,
+                cfg["n_blocks"], cfg["skip"], cfg["with_color"], cfg["S"],
+                cfg["coef"], cfg["sigmoid_rgb"])
+        if p.device.type == "cpu":
+            d, v, c, occ, rgb = composite_plain(*args)
+        else:
+            _cuda.LAUNCHES["composite_fwd"] += 1
+            d, v, c, occ, rgb = launch_composite(*args)
+        ctx.cfg, ctx.n_geo = cfg, n_geo
+        ctx.save_for_backward(p, c_geo, c_col, z, pm, Bg, Bc, occ, rgb,
+                              *flat)
+        return d, v, c
+
+    @staticmethod
+    def backward(ctx, dD, dV, dC):
+        p, c_geo, c_col, z, pm, Bg, Bc, occ, rgb, *flat = ctx.saved_tensors
+        cfg, n_geo = ctx.cfg, ctx.n_geo
+        geo_flat, col_flat = flat[:n_geo], flat[n_geo:]
+        with_color = cfg["with_color"]
+        g_occ, g_rgb = comp_cotangents(occ, rgb, z, pm, cfg["coef"], dD, dV,
+                                       dC, cfg["sigmoid_rgb"] and with_color)
+        need_wgrads = (cfg["need_wgrads"] and with_color
+                       and any(ctx.needs_input_grad[9 + n_geo:]))
+        args = (p, c_geo, c_col, (Bg, Bc), geo_flat, col_flat)
+        if p.device.type == "cpu":
+            _dp, dcg, dcc, dcol = fused_trunks_plain_bwd(
+                *args, g_occ, g_rgb, cfg["n_blocks"], cfg["skip"],
+                with_color, False, need_wgrads)
+        else:
+            _cuda.LAUNCHES["trunks_bwd"] += 1
+            _dp, dcg, dcc, dcol = launch_trunks(
+                *args, cfg["n_blocks"], cfg["skip"], with_color,
+                backward=True, g_occ=g_occ.contiguous(),
+                g_rgb=g_rgb.contiguous(), need_dp=False,
+                need_wgrads=need_wgrads)
+        return (None, dcg, dcc if with_color else None) + (None,) * 6 \
+            + (None,) * n_geo \
+            + tuple(dcol if dcol is not None else [None] * len(col_flat))
+
+
+def nicer_fused_composite(c_geo, c_col, p, z, pm, geo_core_flat,
+                          col_core_flat, Bs, n_blocks: int, skip: int,
+                          with_color: bool, S: int, coef: float,
+                          need_wgrads: bool = True,
+                          sigmoid_rgb: bool = False):
+    """Both trunks and the occupancy compositor per ray: (depth (n_r,),
+    depth variance (n_r,), composited colour (n_r, 3); zero colour without
+    colour).  ``rgb`` is composited post-sigmoid with sigmoid_rgb, raw
+    otherwise (exposure applies outside).
+
+    Differentiable in c_geo, c_col and (with need_wgrads and colour) the
+    colour core weights; p (n_r*S, 3), z (n_r, S), pm (n_r, S; 0/1 floats),
+    the geometry core and both Fourier Bs get zero cotangents (phase
+    constants, frozen), as in the reference.  c_col may be None without
+    colour."""
+    if p.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"composite: unsupported device {p.device}")
+    geo_flat = _weights_of(geo_core_flat)
+    col_flat = _weights_of(col_core_flat) if with_color else []
+    c_geo, c_col, p, z, pm, Bs = _composite_args(c_geo, c_col, p, z, pm, Bs,
+                                                 with_color)
+    if p.device.type == "cuda":
+        _check_composite(p, c_geo, c_col, z, pm, Bs, geo_flat, col_flat,
+                         n_blocks, with_color, S)
+    cfg = dict(n_blocks=n_blocks, skip=skip, with_color=with_color, S=S,
+               coef=coef, sigmoid_rgb=sigmoid_rgb, need_wgrads=need_wgrads)
+    return _FusedComposite.apply(cfg, c_geo, c_col, p, z, pm, Bs[0], Bs[1],
+                                 len(geo_flat), *geo_flat, *col_flat)
+
+
+def fused_comp_bwd(p, c_geo, c_col, z, pm, Bs, geo_core_flat, col_core_flat,
+                   dD, dV, dC, n_blocks: int, skip: int, with_color: bool,
+                   S: int, coef: float, need_wgrads: bool,
+                   sigmoid_rgb: bool = False):
+    """The fully fused backward of nicer_fused_composite (the reference's
+    `_fused_comp_bwd` :756): (dc_geo, dc_col, colour-core weight grads,
+    zero unless colour and need_wgrads).  Kernel #7 on CUDA tensors,
+    composite_bwd_plain on CPU tensors.  No path calls it, as in the
+    reference, whose VJP composes comp_bwd and the trunk backward instead
+    (nicer_fused_composite's backward here)."""
+    if p.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"composite: unsupported device {p.device}")
+    geo_flat = _weights_of(geo_core_flat)
+    col_flat = _weights_of(col_core_flat) if with_color else []
+    c_geo, c_col, p, z, pm, Bs = _composite_args(c_geo, c_col, p, z, pm, Bs,
+                                                 with_color)
+    dD, dV, dC = (t.contiguous() for t in (dD, dV, dC))
+    args = (p, c_geo, c_col, z, pm, Bs, geo_flat, col_flat)
+    if p.device.type == "cpu":
+        return composite_bwd_plain(*args, dD, dV, dC, n_blocks, skip,
+                                   with_color, S, coef, need_wgrads,
+                                   sigmoid_rgb)
+    _check_composite(*args, n_blocks, with_color, S)
+    n_r = z.shape[0]
+    for name, t, shape in (("dD", dD, (n_r,)), ("dV", dV, (n_r,)),
+                           ("dC", dC, (n_r, 3))):
+        _check(name, t, shape, p.device, "composite")
+    _cuda.LAUNCHES["composite_bwd"] += 1
+    dcg, dcc, dcol = launch_composite(
+        *args, n_blocks, skip, with_color, S, coef, sigmoid_rgb,
+        backward=True, dD=dD, dV=dV, dC=dC, need_wgrads=need_wgrads)
+    if dcol is None:
+        dcol = [torch.zeros_like(w) for w in col_core_flat]
+    if not with_color:
+        dcc = torch.zeros_like(c_geo)
+    return dcg, dcc, dcol

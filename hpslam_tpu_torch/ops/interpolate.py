@@ -6,7 +6,10 @@ Gradient structure as in the reference: mapper mode weights come from the
 distances from gathered neighbour positions so pose gradients flow through
 the weights; the out-of-radius mask is always taken on detached values.
 The reference's custom-VJP gathers become autograd Functions whose
-backward scatters with ``index_add_``.
+backward scatter-adds rows with ``index_add_rows``: ``index_add_`` on the
+CPU; on CUDA, where ``index_add_`` adds with float atomics in an order that
+changes from run to run, a stable sort by target row and a segment sum, so
+every target adds its sources in their original order and runs repeat.
 """
 from __future__ import annotations
 
@@ -43,8 +46,22 @@ def interp_weights(D, I, p, cloud_pos, r_query, min_nn_num: int,
     return w[..., None], has_neighbors
 
 
+def index_add_rows(rows: int, idx, src):
+    """``zeros((rows, C)).index_add_(0, idx, src)`` with every target row's
+    sources added in their order in ``idx``, on every device (a
+    deterministic scatter-add; see the module docstring)."""
+    out = torch.zeros((rows, src.shape[-1]), dtype=src.dtype,
+                      device=src.device)
+    if src.device.type == "cpu":
+        return out.index_add_(0, idx, src)
+    sidx, order = torch.sort(idx, stable=True)
+    lengths = torch.bincount(sidx, minlength=rows)
+    return torch.segment_reduce(src[order], "sum", lengths=lengths, axis=0,
+                                unsafe=True)
+
+
 class _InterpGather(torch.autograd.Function):
-    """sum_k w_k * feats[I_k] with an index_add_ backward."""
+    """sum_k w_k * feats[I_k] with an index_add_rows backward."""
 
     @staticmethod
     def forward(ctx, feats, I, weights):
@@ -59,10 +76,8 @@ class _InterpGather(torch.autograd.Function):
         dfeats = dw = None
         if ctx.needs_input_grad[0]:
             upd = (weights * dc[:, None, :]).reshape(-1, dc.shape[-1])
-            dfeats = torch.zeros((ctx.rows, dc.shape[-1]), dtype=upd.dtype,
-                                 device=upd.device)
-            dfeats.index_add_(0, I.reshape(-1), upd)
-            dfeats = dfeats.to(gathered.dtype)
+            dfeats = index_add_rows(ctx.rows, I.reshape(-1), upd).to(
+                gathered.dtype)
         if ctx.needs_input_grad[2]:
             dw = torch.sum(gathered.to(dc.dtype) * dc[:, None, :], dim=-1,
                            keepdim=True).to(weights.dtype)
@@ -70,7 +85,7 @@ class _InterpGather(torch.autograd.Function):
 
 
 class _UnionGather(torch.autograd.Function):
-    """out[n, s] = sum_u Wm[n, s, u] * feats[uids[n, u]], index_add_
+    """out[n, s] = sum_u Wm[n, s, u] * feats[uids[n, u]], index_add_rows
     backward."""
 
     @staticmethod
@@ -86,10 +101,8 @@ class _UnionGather(torch.autograd.Function):
         dfeats = dWm = None
         if ctx.needs_input_grad[0]:
             d_rows = torch.einsum("nsu,nsc->nuc", Wm, dC)
-            C = dC.shape[-1]
-            dfeats = torch.zeros((ctx.rows, C), dtype=dC.dtype,
-                                 device=dC.device)
-            dfeats.index_add_(0, uids.reshape(-1), d_rows.reshape(-1, C))
+            dfeats = index_add_rows(ctx.rows, uids.reshape(-1),
+                                    d_rows.reshape(-1, dC.shape[-1]))
         if ctx.needs_input_grad[2]:
             dWm = torch.einsum("nuc,nsc->nsu", gathered, dC)
         return dfeats, None, dWm
@@ -104,8 +117,8 @@ def union_gather(feats, uids, Wm):
 
 
 class _RowGather(torch.autograd.Function):
-    """feats[idx] with an index_add_ backward (the mapper's per-iteration
-    union-row gather)."""
+    """feats[idx] with an index_add_rows backward (the mapper's
+    per-iteration union-row gather)."""
 
     @staticmethod
     def forward(ctx, feats, idx):
@@ -117,10 +130,8 @@ class _RowGather(torch.autograd.Function):
     def backward(ctx, d_out):
         (idx,) = ctx.saved_tensors
         C = d_out.shape[-1]
-        d = torch.zeros((ctx.rows, C), dtype=d_out.dtype,
-                        device=d_out.device)
-        d.index_add_(0, idx.reshape(-1), d_out.reshape(-1, C))
-        return d, None
+        return index_add_rows(ctx.rows, idx.reshape(-1),
+                              d_out.reshape(-1, C)), None
 
 
 def gather_rows(feats, idx):
@@ -142,8 +153,11 @@ def union_slots(ids_sk, w_sk, u_max: int, sentinel):
     newgrp = torch.ones_like(sid, dtype=torch.bool)
     newgrp[:, 1:] = sid[:, 1:] != sid[:, :-1]
     slot = torch.cumsum(newgrp.to(torch.int64), dim=1) - 1
-    tw = torch.zeros((R, SK), dtype=w_sk.dtype, device=dev)
-    tw.scatter_add_(1, slot, torch.gather(torch.abs(w_sk), 1, order))
+    # total |w| per slot; slot ids rise along each row, so row r's slot j
+    # is flat row r * SK + j (a deterministic scatter-add, as above)
+    flat = (slot + SK * torch.arange(R, device=dev)[:, None]).reshape(-1)
+    tw = index_add_rows(R * SK, flat, torch.gather(
+        torch.abs(w_sk), 1, order).reshape(-1, 1)).reshape(R, SK)
     uid_slot = torch.zeros((R, SK), dtype=ids_sk.dtype, device=dev)
     uid_slot.scatter_reduce_(1, slot, sid, reduce="amax", include_self=True)
     # top-u_max by total weight, ties to the lower slot (stable sort)

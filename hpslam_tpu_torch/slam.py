@@ -6,9 +6,14 @@ keyframes are registered, checkpoints and the final point cloud are
 written, and the trajectory is evaluated (ATE).  ``sync_method`` loose /
 free defer mapping by a fixed tracker lag, as the reference does.
 
+With ``mesh`` in the config (``--mesh dp2``; ``parallel.mesh``) the
+tracker and mapper run their dp-sharded programs; every rank runs this
+loop on the same data and seeds and holds the same state, and only rank 0
+writes outputs and prints.
+
 Not ported (raise NotImplementedError when enabled): rendered
 visualisations (the tracking/mapping ``vis_freq`` panels), telemetry
-(``wandb``), multi-device meshes, resume, end-of-sequence correction.
+(``wandb``), resume, end-of-sequence correction.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import torch
 from .device import resolve_device
 from .mapper import Mapper
 from .models import decoder as Dec
+from .parallel.mesh import local_device, parse_mesh_spec
 from .state import NeuralPointCloud
 from .tracker import Tracker
 from .utils.datasets import Prefetcher, get_dataset
@@ -49,18 +55,30 @@ class PointSLAM:
         if device is None:
             device = getattr(args, "device", None)
         self.device = resolve_device(device)
-        for key, what in (("mesh", "multi-device meshes"),
-                          ("resume", "resume"), ("wandb", "telemetry")):
+        # optional device mesh (--mesh dp4 / mesh: "dp4" in YAML): the
+        # tracker and mapper shard their ray batches over its dp axis;
+        # under torchrun rank r runs on cuda:<LOCAL_RANK>
+        self.mesh = None
+        if cfg.get("mesh"):
+            if self.device.type == "cuda":
+                self.device = local_device("cuda")
+                torch.cuda.set_device(self.device)
+            self.mesh = parse_mesh_spec(cfg["mesh"], self.device.type)
+        self.is_main = self.mesh is None or self.mesh.is_main
+        for key, what in (("resume", "resume"), ("wandb", "telemetry")):
             if cfg.get(key):
                 raise NotImplementedError(f"{what} is not ported yet; see "
                                           "ROADMAP.md")
         if cfg["mapping"].get("end_correction"):
             raise NotImplementedError("end_correction is not ported yet; "
                                       "see ROADMAP.md")
-        self.verbose = cfg.get("verbose", True)
+        self.verbose = cfg.get("verbose", True) and self.is_main
         self.output = cfg["data"]["output"]
         self.ckptsdir = os.path.join(self.output, "ckpts")
-        os.makedirs(self.ckptsdir, exist_ok=True)
+        if self.is_main:
+            os.makedirs(self.ckptsdir, exist_ok=True)
+        if self.verbose and self.mesh is not None:
+            print(f"device mesh axes: {self.mesh.shape}", flush=True)
         cam = cfg["cam"]
         self.H, self.W = cam["H"], cam["W"]
         self.fx, self.fy = cam["fx"], cam["fy"]
@@ -93,7 +111,8 @@ class PointSLAM:
         self._pending_maps: list = []
         self._frame_buf: dict = {}
         self.ckpt_freq = cfg["mapping"]["ckpt_freq"]
-        self.metrics_path = os.path.join(self.output, "metrics.jsonl")
+        self.metrics_path = (os.path.join(self.output, "metrics.jsonl")
+                             if self.is_main else os.devnull)
 
     def update_cam(self):
         cfg = self.cfg
@@ -161,7 +180,7 @@ class PointSLAM:
         return info
 
     def _save_point_clouds(self):
-        if len(self.npc.input_pos()) == 0:
+        if len(self.npc.input_pos()) == 0 or not self.is_main:
             return
         from .utils.ply import write_ply_points
         pos = np.asarray(self.npc.input_pos(), np.float32)
@@ -206,6 +225,8 @@ class PointSLAM:
                 self._log_metrics(mf, {"event": "summary", **summary})
         finally:
             prefetcher.close()
+            if self.mesh is not None:
+                self.mesh.close()
         return results, summary
 
     def _step(self, mf, idx, frame, n, track_times, map_times):
@@ -258,7 +279,8 @@ class PointSLAM:
             if sync:
                 torch.cuda.synchronize(self.device)
             map_times.append(time.perf_counter() - t0)
-        if (idx > 0 and idx % self.ckpt_freq == 0) or idx == n - 1:
+        if self.is_main and ((idx > 0 and idx % self.ckpt_freq == 0)
+                             or idx == n - 1):
             self.logger.log(idx, self.npc, self.params, self.exposure_feat,
                             self.mapper.keyframe_list,
                             self.mapper.keyframe_dict,

@@ -11,7 +11,12 @@ path) or, with ``tracking.fused_loss``, through one fused tracker render
 over per-sub-stage cache rows.  The reference's ``lax.scan`` becomes a
 Python loop; pixel draws come from a ``torch.Generator``.
 
-Not ported: the multi-device mesh.
+Under a device mesh (``parallel.mesh``) every rank draws the sub-stage's
+whole pixel set, takes the 'inside' threshold from all of it, then
+searches and renders only its dp slice; the median or mean residual of the
+outlier mask, the loss and the pose (and exposure) gradients are summed or
+gathered over dp, so every rank takes the same Adam step.  The fused
+render is single-device only, as in the reference.
 """
 from __future__ import annotations
 
@@ -27,6 +32,8 @@ from .ops import image as IM
 from .ops import knn as Knn
 from .ops import optim as Opt
 from .ops import sampling as Samp
+from .parallel.mesh import (all_gather_rows, all_reduce_grads,
+                            all_reduce_sum, shard_batch)
 from .renderer import RenderConfig, render_rays
 
 
@@ -44,14 +51,19 @@ def track_frame(params, mcfg: Dec.ModelConfig, rcfg: RenderConfig,
                 cam_lr: float, separate_lr: bool, use_exposure: bool,
                 w_color: float, use_color: bool, handle_dynamic: bool,
                 resample_stages: int = 1, knn_probe: int = 16,
-                dense_cache: bool = True, fused_track: bool = False):
+                dense_cache: bool = True, fused_track: bool = False,
+                mesh=None):
     """Optimise the camera of one frame.
 
     level_*: (pos, count, geo, col) of each level; index_*: its tile index.
     fused_track: render each step through the fused tracker render
     (baseline decoder variants only, as the reference).
+    mesh: optional ``parallel.mesh.Mesh``: the pixel batch is dp-sharded
+    (see the module docstring); the result is the same on every rank.
     Returns (best_cam (7,), best_loss, losses (iters,), opt_params)."""
     dev = cam_init.device
+    if fused_track and mesh is not None:
+        raise ValueError("fused_track: single-device path only")
     if fused_track and (mcfg.use_view_direction or mcfg.use_normals
                         or mcfg.encode_rel_pos_in_col
                         or mcfg.encode_rel_pos_in_geo):
@@ -177,13 +189,23 @@ def track_frame(params, mcfg: Dec.ModelConfig, rcfg: RenderConfig,
         unc = unc.detach()
         ok = inside & torch.isfinite(depth) & torch.isfinite(unc)
         tmp = torch.abs(d_gt - depth) / torch.sqrt(unc + 1e-10)
+        # the outlier statistics are whole-batch ones; they only select
+        # rays, so no gradient flows through them
         if handle_dynamic:
-            tmp_mean = torch.sum(torch.where(ok, tmp, 0.0)) / torch.clamp(
-                torch.sum(ok), min=1)
+            if mesh is None:
+                tmp_mean = torch.sum(torch.where(ok, tmp, 0.0)) \
+                    / torch.clamp(torch.sum(ok), min=1)
+            else:
+                tsum, cnt = all_reduce_sum(
+                    mesh, torch.sum(torch.where(ok, tmp, 0.0)).detach(),
+                    torch.sum(ok).float())
+                tmp_mean = tsum / torch.clamp(cnt, min=1)
             mask = (tmp < 10.0 * tmp_mean) & (d_gt > 0)
         else:
             ad = torch.abs(d_gt - depth)
-            med = torch.nanquantile(torch.where(ok, ad, float("nan")), 0.5)
+            med = torch.nanquantile(all_gather_rows(
+                mesh, torch.where(ok, ad, float("nan")).detach(), pixels),
+                0.5)
             med = torch.nan_to_num(med, nan=1e9)
             mask = (ad < 10.0 * med) & (d_gt > 0)
         mask = mask & ok
@@ -207,11 +229,13 @@ def track_frame(params, mcfg: Dec.ModelConfig, rcfg: RenderConfig,
             if sub == 0:
                 continue
             inputs = stage_inputs(r_query_map)
-            knn_cache, dense = stage_knn(inputs, tile_index, pos, cat_feats,
-                                         current_cam(state["op"]).detach())
+            # the threshold from the whole pixel set, then this rank's slice
             d_gt_stage = inputs[2]
             inside_thresh = torch.minimum(10.0 * _median(d_gt_stage),
                                           1.2 * torch.max(d_gt_stage))
+            inputs = shard_batch(mesh, *inputs)
+            knn_cache, dense = stage_knn(inputs, tile_index, pos, cat_feats,
+                                         current_cam(state["op"]).detach())
             for _ in range(sub):
                 op = Opt.tree_map(lambda t: t.detach().requires_grad_(),
                                   state["op"])
@@ -219,6 +243,9 @@ def track_frame(params, mcfg: Dec.ModelConfig, rcfg: RenderConfig,
                 loss = loss_fn(op, stage, level, inputs, knn_cache, dense,
                                cat_feats, inside_thresh)
                 grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+                if mesh is not None:
+                    grads, loss = all_reduce_grads(mesh, grads, leaves,
+                                                   loss.detach())
                 gtree = Opt.tree_unflatten(op, grads)
                 new_op, state["ost"] = Opt.update(
                     gtree, state["ost"], Opt.tree_map(torch.detach, op),
@@ -278,12 +305,12 @@ class Tracker:
         self.gen.manual_seed(int(cfg.get("seed", 1219)) + 2)
 
     def fused_ok(self) -> bool:
-        """The fused render covers the baseline decoder; a variant knob
-        (rel-pos, normals, view direction) takes the plain path, as the
-        reference's _fused_ok does."""
+        """The fused render covers the baseline decoder on one device; a
+        mesh or a variant knob (rel-pos, normals, view direction) takes the
+        plain path, as the reference's _fused_ok does."""
         m = self.slam.mcfg
-        return self.fused_loss and not (
-            m.use_view_direction or m.use_normals
+        return self.fused_loss and getattr(self.slam, "mesh", None) is None \
+            and not (m.use_view_direction or m.use_normals
             or m.encode_rel_pos_in_col or m.encode_rel_pos_in_geo)
 
     def prepare_radii(self, color: np.ndarray):
@@ -348,7 +375,8 @@ class Tracker:
             w_color=self.w_color, use_color=self.use_color,
             handle_dynamic=self.handle_dynamic,
             resample_stages=self.resample_stages, knn_probe=self.knn_probe,
-            dense_cache=self.dense_cache, fused_track=self.fused_ok())
+            dense_cache=self.dense_cache, fused_track=self.fused_ok(),
+            mesh=getattr(slam, "mesh", None))
         best_cam = best_cam.detach().cpu().numpy()
         best_loss = float(best_loss)
         losses = losses.cpu().numpy()

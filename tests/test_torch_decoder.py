@@ -100,7 +100,7 @@ def test_softplus_and_valid_ray_mask(rng):
         np.asarray(jDec.valid_ray_mask(jnp.asarray(has), 5, 5)))
 
 
-def test_fused_trunks_raise_not_implemented(rng):
+def test_eval_stage_fused_trunks_match_plain(rng):
     """The fused trunks are ported: eval_stage with fused_mlp on gives what
     the plain trunks give, in values and in the gradients of the features
     and of the colour core (rtol 1e-5 / atol 1e-6: the same f32 products,

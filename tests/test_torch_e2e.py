@@ -107,3 +107,31 @@ def test_port_and_reference_ate_agree(tmp_path):
     # the tiny budget is noise-dominated (different random streams);
     # the port must stay within the reference's scale
     assert a < max(2.0 * b, b + 0.05), (a, b)
+
+
+@pytest.mark.slow
+def test_port_mesh_dp2_matches_single_device(tmp_path):
+    """The counterpart of tests/test_e2e.py::test_pointslam_run_mesh_dp8:
+    the tiny run with mesh dp2 on two gloo ranks (spawned processes, a
+    FileStore rendezvous) against the single-device run; the trajectory
+    within the reference's 0.15 m drift bound of it (the fixture's
+    neighbour-set noise, carried through each frame's Adam steps)."""
+    from hpslam_tpu_torch import run as R
+    from hpslam_tpu_torch.utils.logger import (latest_checkpoint,
+                                               load_checkpoint)
+    from tests.test_torch_parallel import run_ranks
+    res1, _, out1 = _run_port(tmp_path)
+    cfg = tiny_cfg(tmp_path)
+    cfg["mesh"] = "dp2"
+    path = str(tmp_path / "tiny_dp2.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    out2 = str(tmp_path / "port_dp2")
+    outs = run_ranks(tmp_path, 2, R.run,
+                     [path, "--output", out2, "--device", "cpu"])
+    rmse = [r[0]["absolute_translational_error.rmse"] for r in outs]
+    assert rmse[0] == rmse[1] and np.isfinite(rmse[0]) and rmse[0] < 0.5
+    traj1 = load_checkpoint(latest_checkpoint(out1))["estimate_c2w_list"]
+    traj2 = load_checkpoint(latest_checkpoint(out2))["estimate_c2w_list"]
+    dt = np.linalg.norm(traj2[:, :3, 3] - traj1[:, :3, 3], axis=1)
+    assert float(dt.max()) < 0.15, f"mesh-vs-single drift {dt.max():.3f} m"

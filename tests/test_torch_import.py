@@ -26,8 +26,12 @@ def _port_modules():
 
 
 def test_import_pulls_in_neither_jax_nor_reference():
+    mods = _port_modules()
+    # the multi-device modules are among those imported
+    assert {"hpslam_tpu_torch.parallel", "hpslam_tpu_torch.parallel.mesh",
+            "hpslam_tpu_torch.parallel.knn_tp"} <= set(mods)
     code = ("import importlib, sys\n"
-            f"for m in {_port_modules()!r}:\n"
+            f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "'jax.') or m == 'hpslam_tpu' or m.startswith('hpslam_tpu.')]\n"

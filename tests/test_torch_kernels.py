@@ -4,13 +4,16 @@ there is no CUDA device; chip_smoke.py runs the same comparisons at the
 main path's shapes.
 
 Tolerances: row top-k bitwise (selection copies existing floats).  Mapping
-loss, fused trunks and tracker render: values rtol 1e-4 (elementwise, atol
-1e-4 of the largest magnitude); cotangents ||kernel - plain|| / ||plain||
-<= 1e-4 (f32 sums taken in another order; a ReLU pre-activation within
-rounding of 0 can flip one unit's gradient between the two orders); the
+loss, fused trunks, fused composite and tracker render: values rtol 1e-4
+(elementwise, atol 1e-4 of the largest magnitude); cotangents
+||kernel - plain|| / ||plain|| <= 1e-4 (f32 sums taken in another order;
+a ReLU pre-activation within rounding of 0 can flip one unit's gradient
+between the two orders); the
 tracker render's d rays, whose rounding the distance weights amplify,
 within twice the f32 plain version's distance from the float64 plain
-version, in norm and entry by entry (chip_smoke.check_drays).
+version, in norm and entry by entry (chip_smoke.check_drays).  The
+deterministic scatter-add of the feature gathers' backward repeats
+bitwise.
 """
 import numpy as np
 import pytest
@@ -198,3 +201,61 @@ def test_trackloss_kernels_match_plain(cuda, use_affine, wmode):
         _close_rel(dak, dap, "daff")
     else:
         assert not dak.any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_color,sigmoid_rgb", [(True, True),
+                                                    (True, False),
+                                                    (False, False)])
+def test_composite_kernels_match_plain(cuda, with_color, sigmoid_rgb):
+    """Kernel #6 through nicer_fused_composite under autograd (its backward
+    on kernel #5) against composite_plain under autograd, and kernel #7
+    through fused_comp_bwd against composite_bwd_plain, at the full model
+    width (chip_smoke.py's inputs, fewer rays)."""
+    import chip_smoke
+    I = chip_smoke.composite_inputs(torch, cuda, n_r=600)
+    before = dict(_cuda.LAUNCHES)
+    k = chip_smoke.composite_autograd(I, "wrapper", with_color, sigmoid_rgb)
+    assert _cuda.LAUNCHES["composite_fwd"] == \
+        before.get("composite_fwd", 0) + 1
+    assert _cuda.LAUNCHES["trunks_bwd"] == before.get("trunks_bwd", 0) + 1
+    p = chip_smoke.composite_autograd(I, "plain", with_color, sigmoid_rgb)
+    mcfg, S = I["mcfg"], I["S"]
+    args = (I["p"], I["cg"], I["cc"] if with_color else None, I["z"],
+            I["pm"], I["Bs"], I["geo"], I["col"] if with_color else [])
+    rest = (I["dD"], I["dV"], I["dC"], mcfg.n_blocks, mcfg.skip, with_color,
+            S, chip_smoke.COMP_COEF, True, sigmoid_rgb)
+    k7 = FM.fused_comp_bwd(*args, *rest)
+    assert _cuda.LAUNCHES["composite_bwd"] == \
+        before.get("composite_bwd", 0) + 1
+    p7 = FM.composite_bwd_plain(*args, *rest)
+    torch.cuda.synchronize()
+    for name, a, b in (("depth", k[0], p[0]), ("var", k[1], p[1]),
+                       ("color", k[2], p[2])):
+        _values_close(a, b, name)
+    _close_rel(k[3], p[3], "dcg")
+    _close_rel(k7[0], p7[0], "k7 dcg")
+    if with_color:
+        _close_rel(k[4], p[4], "dcc")
+        _close_rel(k7[1], p7[1], "k7 dcc")
+        for i, (a, b) in enumerate(zip(k[5], p[5])):
+            _close_rel(a, b, f"dcol[{i}]")
+        for i, (a, b) in enumerate(zip(k7[2], p7[2])):
+            _close_rel(a, b, f"k7 dcol[{i}]")
+    else:
+        assert not k[2].any() and not k7[1].any()
+
+
+@pytest.mark.gpu
+def test_index_add_rows_repeats_bitwise(cuda):
+    """The feature gathers' backward scatter-add on the card: the same
+    inputs give the same bits on every call, and the CPU's index_add_
+    order (each row's sources in their order)."""
+    from hpslam_tpu_torch.ops import interpolate as IT
+    g = torch.Generator(device=cuda).manual_seed(6)
+    idx = torch.randint(0, 500, (8000,), generator=g, device=cuda)
+    src = torch.randn((8000, 64), generator=g, device=cuda)
+    outs = [IT.index_add_rows(500, idx, src) for _ in range(3)]
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    cpu = torch.zeros((500, 64)).index_add_(0, idx.cpu(), src.cpu())
+    assert torch.equal(outs[0].cpu(), cpu)

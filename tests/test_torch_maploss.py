@@ -111,7 +111,16 @@ def test_maploss_matches_pallas_reference(rng, with_color, use_aff):
 
 
 def test_unported_fused_entry_points_raise():
-    """The fused composite render (kernels #6-7, reached only by the
-    multi-device path) is the one fused entry point not ported."""
-    with pytest.raises(NotImplementedError):
-        tFM.nicer_fused_composite()
+    """Every fused entry point is ported now; the last two, the fused
+    composite (kernel #6) and its fully fused backward (kernel #7), raise
+    for a tensor on a device they do not run on, as the others do."""
+    def meta(*shape):
+        return torch.zeros(shape, device="meta")
+    with pytest.raises(ValueError):
+        tFM.nicer_fused_composite(meta(10, 8), None, meta(10, 3),
+                                  meta(2, 5), meta(2, 5), [], [],
+                                  (None, None), 5, 2, False, 5, 0.1)
+    with pytest.raises(ValueError):
+        tFM.fused_comp_bwd(meta(10, 3), meta(10, 8), None, meta(2, 5),
+                           meta(2, 5), (None, None), [], [], meta(2),
+                           meta(2), meta(2, 3), 5, 2, False, 5, 0.1, False)
