@@ -12,11 +12,13 @@ Phases, each printed as one JSON line when it starts and when it ends:
            path's shapes; kernel / plain / torch.topk times
   maploss  mapping-loss kernel pair against the plain version (autograd)
            at bench.py's operating point (10000 rays) and the SLAM run's
-           (4000 rays); kernel / plain times
+           (4000 rays), a ragged n (4001 rays) and without the weight
+           gradients; kernel #3 twice, bitwise; kernel / plain times
   trunks   fused-trunk kernel pair through its autograd wrapper against
            fused_trunks_plain(_bwd) at the fused-trunk mapping path's shape
-           (4000 rays x 5 samples): colour, geometry only, and with the
-           position cotangent; kernel / plain times
+           (4000 rays x 5 samples): colour, geometry only, with the
+           position cotangent, a ragged n (20003 samples) and without the
+           weight gradients; each twice, bitwise; kernel / plain times
   trackloss  fused tracker-render kernel pair against trackloss_plain
            (autograd) at the tracker's 2000 rays: sigmoid tail, exposure
            affine, exp weighting; kernel / plain times
@@ -40,7 +42,9 @@ Phases, each printed as one JSON line when it starts and when it ends:
            three times on the same inputs, bitwise; then every SLAM run of
            this process again, whose trajectory and ATE must equal the
            first run's bitwise
-  kernels  one JSON line describing every ported kernel
+  kernels  one JSON line describing every ported kernel, with its bound
+           at the f32 rate (bound_ms) and with the operations on the
+           tensor cores at f32 accuracy (tc_bound_ms, 3xTF32)
 
 The last line is {"ok": true, "device": {...}}, printed only when every
 phase passed; any failure exits non-zero.  Without CUDA, or without the
@@ -66,6 +70,9 @@ PHASES = ["device", "build", "topk", "maploss", "trunks", "trackloss",
 # H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+# TF32 tensor cores (495 TFLOP/s dense) at f32 accuracy: 3xTF32 takes
+# three passes per product
+TC_F32_FLOPS = 495e12 / 3
 
 # tolerances of the kernel-vs-plain comparisons
 TOPK_TOL = "bitwise"            # selection copies existing floats
@@ -120,9 +127,14 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def bound_ms(nbytes: float, flops: float):
+    """(least time, "bytes" or "operations", least time with the
+    operations on the tensor cores at f32 accuracy): the larger of the
+    bytes over the memory rate and the operations over the f32 rate (or
+    over TC_F32_FLOPS)."""
     tb = nbytes / HBM_BYTES_PER_S * 1e3
     tf = flops / F32_FLOPS * 1e3
-    return (tb, "bytes") if tb >= tf else (tf, "operations")
+    tc = max(tb, flops / TC_F32_FLOPS * 1e3)
+    return (tb, "bytes", tc) if tb >= tf else (tf, "operations", tc)
 
 
 def nvidia_smi() -> str:
@@ -204,16 +216,17 @@ def run_topk(results: dict) -> dict:
         # the rows read once, the k selected payload values per row, the
         # (n, k) values and indices written once
         nbytes = 4 * n * C + 4 * n * k * (p is not None) + 8 * n * k
-        b, by = bound_ms(nbytes, float(n) * C * k)
+        b, by, tc = bound_ms(nbytes, float(n) * C * k)
         rows.append({"case": name, "shape": [n, C], "k": k, "ms": ms,
                      "plain_ms": plain, "library_ms": lib, "bound_ms": b,
-                     "bound_by": by})
+                     "bound_by": by, "tc_bound_ms": tc})
         worst = max(worst, float((d0 - d1).abs().max()))
     main = rows[0]   # the candidate top-k dominates the path's launches
     results["topk_rows"] = {
         "max_abs_err": worst, "ms": main["ms"], "plain_ms": main["plain_ms"],
         "library_ms": main["library_ms"], "bound_ms": main["bound_ms"],
-        "bound_by": main["bound_by"], "cases": rows}
+        "bound_by": main["bound_by"], "tc_bound_ms": main["tc_bound_ms"],
+        "cases": rows}
     return {"tolerance": TOPK_TOL, "cases": rows}
 
 
@@ -275,7 +288,7 @@ def trunk_flops(mcfg, emb, hid, nout, with_embed_cot: bool):
 
 
 def maploss_work(mcfg, n, S, u, with_color, backward, geo_numel,
-                 col_numel):
+                 col_numel, need_wgrads=True):
     """(bytes, flops) the function must move / do at this shape.
 
     Per sample the forward runs the union mix and both trunks.  The
@@ -292,14 +305,15 @@ def maploss_work(mcfg, n, S, u, with_color, backward, geo_numel,
                           False) if with_color else (0, 0))
     mix = 2 * u * C * (2 if with_color else 1)
     per = fg + fc + mix
+    wg = with_color and need_wgrads
     if backward:
-        per += cg + cc + fc + mix
+        per += cg + cc + (fc if wg else 0) + mix
     D = 5 * S + 7 + S * u + u
     fs = 2 * C if with_color else C
     weights = geo_numel + (col_numel if with_color else 0)
     nbytes = 4 * (n * (D + u * fs + 1 + 12) + weights)
     if backward:
-        nbytes += 4 * (n * (u * fs + 12) + (col_numel if with_color else 0))
+        nbytes += 4 * (n * (u * fs + 12) + (col_numel if wg else 0))
     return nbytes, float(per) * n * S
 
 
@@ -328,10 +342,14 @@ def run_maploss(results: dict) -> dict:
     # bench.py's operating point (10000 rays) and the smoke's SLAM run
     # (mapping.pixels = 4000 rays per iteration); the colour stage without
     # the affine is the one the SLAM run takes, so it goes into the
-    # kernels line
-    for n_rays, with_color, use_aff in (
-            (10000, True, False), (10000, True, True), (10000, False, False),
-            (4000, True, False), (4000, True, True), (4000, False, False)):
+    # kernels line; then a ragged n (4001 rays: 20005 samples, not a
+    # multiple of the 64-sample tile) and the colour stage without the
+    # weight gradients
+    for n_rays, with_color, use_aff, need_wg in (
+            (10000, True, False, True), (10000, True, True, True),
+            (10000, False, False, True), (4000, True, False, True),
+            (4000, True, True, True), (4000, False, False, True),
+            (4001, True, False, True), (4000, True, False, False)):
         I = maploss_inputs(torch, dev, with_color, n=n_rays)
         kw = dict(I["kw"], with_color=with_color, sigmoid_rgb=not use_aff,
                   use_affine=use_aff)
@@ -349,17 +367,27 @@ def run_maploss(results: dict) -> dict:
                 t.grad if t.grad is not None else torch.zeros_like(t)
                 for t in ts]
 
-        # kernel 3 through the wrapper under autograd; the plain version
-        # differentiated by autograd
-        gk, ck, dk = grads_of(
-            lambda *a, **k: FM.nicer_fused_maploss(*a, w_color=w_color, **k),
-            leaves())
+        def kernel3(*a, **k):
+            return FM.nicer_fused_maploss(*a, w_color=w_color,
+                                          need_wgrads=need_wg, **k)
+
+        # kernel 3 through the wrapper under autograd, twice (the two must
+        # agree bit for bit); the plain version differentiated by autograd
+        gk, ck, dk = grads_of(kernel3, leaves())
+        gk2, ck2, dk2 = grads_of(kernel3, leaves())
         gp, cp, dp = grads_of(FM.maploss_plain, leaves())
         with torch.no_grad():                   # kernel 2 through the wrapper
             g2, c2 = FM.nicer_fused_maploss(
                 I["uf"], I["aff"], I["col"], I["row"], I["okf"], I["geo"],
                 I["Bs"], w_color=w_color, **kw)
         torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in
+                   zip([gk, ck] + dk, [gk2, ck2] + dk2)):
+            raise AssertionError(f"maploss: kernel 3 does not repeat "
+                                 f"bitwise (n={n_rays})")
+        if not need_wg and any(t.any() for t in dk[2:]):
+            raise AssertionError("maploss: colour-core gradients without "
+                                 "need_wgrads")
         for name, a, b in (("gl", gk, gp), ("cl", ck, cp), ("gl_fwd", g2, gp),
                            ("cl_fwd", c2, cp)):
             rel = float((a - b).abs() / max(float(b.abs()), 1e-12))
@@ -375,7 +403,7 @@ def run_maploss(results: dict) -> dict:
         for name, a, b in zip(names, dk, dp):
             if name == "daff" and not use_aff:
                 continue
-            if name.startswith("dcol") and not with_color:
+            if name.startswith("dcol") and not (with_color and need_wg):
                 continue
             mx, fro = compare_grads(name, a, b)
             worst_bwd = max(worst_bwd, mx)
@@ -384,7 +412,7 @@ def run_maploss(results: dict) -> dict:
         ts = leaves()
         t3 = cuda_time_ms(lambda: FM.nicer_fused_maploss(
             ts[0], ts[1], ts[2:], I["row"], I["okf"], I["geo"], I["Bs"],
-            w_color=w_color, **kw), iters=10)
+            w_color=w_color, need_wgrads=need_wg, **kw), iters=10)
 
         def kernel_fwd():
             with torch.no_grad():
@@ -404,25 +432,29 @@ def run_maploss(results: dict) -> dict:
         numel = [sum(t.numel() for t in I[k]) + I["Bs"][i].numel()
                  for i, k in enumerate(("geo", "col"))]
         b3 = bound_ms(*maploss_work(I["mcfg"], n, S, u, with_color, True,
-                                    *numel))
+                                    *numel, need_wgrads=need_wg))
         b2 = bound_ms(*maploss_work(I["mcfg"], n, S, u, with_color, False,
                                     *numel))
         cases.append({"with_color": with_color, "affine": use_aff, "n": n,
-                      "fwd_ms": t2, "fwd_plain_ms": tp2,
-                      "fwd_bound_ms": b2[0], "bwd_ms": t3,
-                      "bwd_plain_ms": tp3, "bwd_bound_ms": b3[0],
-                      "bound_by": b3[1],
-                      "grad_rel_fro_max": max(stats.values())})
-        if n == 4000 and with_color and not use_aff:
+                      "need_wgrads": need_wg, "fwd_ms": t2,
+                      "fwd_plain_ms": tp2, "fwd_bound_ms": b2[0],
+                      "bwd_ms": t3, "bwd_plain_ms": tp3,
+                      "bwd_bound_ms": b3[0], "bwd_tc_bound_ms": b3[2],
+                      "bound_by": b3[1], "bitwise_repeat": True,
+                      "grad_rel_fro_max": max(stats.values()),
+                      "worst": max(stats, key=stats.get)})
+        if n == 4000 and with_color and not use_aff and need_wg:
             timing = {"fwd": (t2, tp2, b2), "bwd": (t3, tp3, b3)}
     results["maploss_fwd"] = {
         "max_abs_err": worst_fwd, "ms": timing["fwd"][0],
         "plain_ms": timing["fwd"][1], "bound_ms": timing["fwd"][2][0],
-        "bound_by": timing["fwd"][2][1], "library_ms": None}
+        "bound_by": timing["fwd"][2][1],
+        "tc_bound_ms": timing["fwd"][2][2], "library_ms": None}
     results["maploss_bwd"] = {
         "max_abs_err": worst_bwd, "ms": timing["bwd"][0],
         "plain_ms": timing["bwd"][1], "bound_ms": timing["bwd"][2][0],
-        "bound_by": timing["bwd"][2][1], "library_ms": None}
+        "bound_by": timing["bwd"][2][1],
+        "tc_bound_ms": timing["bwd"][2][2], "library_ms": None}
     _cuda.reset_launches()
     return {"tolerance": {"loss_rtol": LOSS_RTOL,
                           "grad_rel_fro": GRAD_REL_FRO,
@@ -475,7 +507,7 @@ def trunks_inputs(torch, dev, n=20000):
         Bs=(gd["B"].contiguous(), cd["B"].contiguous()))
 
 
-def trunks_via_wrapper(I, with_color, need_dp):
+def trunks_via_wrapper(I, with_color, need_dp, need_wgrads=True):
     """Kernels #4-5 through the autograd wrapper the mapping path calls
     (nicer_fused_color / nicer_fused_geo), every input requiring grad:
     (occ, rgb, p.grad, c_geo.grad, c_col.grad, colour-core weight grads).
@@ -491,7 +523,8 @@ def trunks_via_wrapper(I, with_color, need_dp):
     if with_color:
         occ, rgb = FM.nicer_fused_color(p, cg, cc, geo, col, I["Bs"],
                                         mcfg.n_blocks, mcfg.skip,
-                                        need_dp=need_dp, need_wgrads=True)
+                                        need_dp=need_dp,
+                                        need_wgrads=need_wgrads)
         torch.autograd.backward([occ, rgb], [I["g_occ"], I["g_rgb"]])
     else:
         occ = FM.nicer_fused_geo(p, cg, geo, I["Bs"][0], mcfg.n_blocks,
@@ -503,6 +536,9 @@ def trunks_via_wrapper(I, with_color, need_dp):
     if not with_color and (cc.grad is not None
                            or any(w.grad is not None for w in col)):
         raise AssertionError("trunks: geometry only, colour got a gradient")
+    if not need_wgrads and any(w.grad is not None for w in col):
+        raise AssertionError("trunks: colour-core gradients without "
+                             "need_wgrads")
     return (occ.detach(), None if rgb is None else rgb.detach(), p.grad,
             cg.grad, cc.grad, [w.grad for w in col])
 
@@ -511,22 +547,33 @@ def run_trunks(results: dict) -> dict:
     """Kernels #4-5 through their autograd wrapper against
     fused_trunks_plain / fused_trunks_plain_bwd: colour with the weight
     gradients (the mapping path's colour stages), geometry only (its
-    geometry stages), and colour with the position cotangent (need_dp, the
-    bundle-adjustment form).  The bare launcher is timed."""
+    geometry stages), colour with the position cotangent (need_dp, the
+    bundle-adjustment form), a ragged n (20003 samples, not a multiple of
+    the 64-sample tile) and colour without the weight gradients.  Two runs
+    of the wrapper must agree bit for bit.  The bare launcher is timed."""
     import torch
     from hpslam_tpu_torch.ops import fused_mlp as FM
     dev = torch.device("cuda")
-    I = trunks_inputs(torch, dev)
-    mcfg = I["mcfg"]
+    inputs = {n: trunks_inputs(torch, dev, n=n) for n in (20000, 20003)}
     cases = []
     worst = {"fwd": 0.0, "bwd": 0.0}
-    for with_color, need_dp in ((True, False), (False, False), (True, True)):
+    for with_color, need_dp, n, wg in (
+            (True, False, 20000, True), (False, False, 20000, False),
+            (True, True, 20000, True), (True, False, 20003, True),
+            (False, True, 20003, False), (True, False, 20000, False)):
+        I = inputs[n]
+        mcfg = I["mcfg"]
         col = I["col"] if with_color else []
         args = (I["p"], I["cg"], I["cc"] if with_color else None, I["Bs"],
                 I["geo"], col, mcfg.n_blocks, mcfg.skip, with_color)
-        wg = with_color
         occ, rgb, dp, dcg, dcc, dcol = trunks_via_wrapper(I, with_color,
-                                                          need_dp)
+                                                          need_dp, wg)
+        again = trunks_via_wrapper(I, with_color, need_dp, wg)
+        first = (occ, rgb, dp, dcg, dcc, *dcol)
+        if not all((a is None and b is None) or torch.equal(a, b)
+                   for a, b in zip(first, (*again[:5], *again[5]))):
+            raise AssertionError(f"trunks: kernel 5 does not repeat "
+                                 f"bitwise (n={n})")
         occ0, rgb0 = FM.fused_trunks_plain(*args)
         bwd0 = FM.fused_trunks_plain_bwd(*args[:6], I["g_occ"], I["g_rgb"],
                                          *args[6:], need_dp, wg)
@@ -542,6 +589,7 @@ def run_trunks(results: dict) -> dict:
             raise AssertionError("trunks: dp must be zero without need_dp")
         if with_color:
             pairs.append(("dcc", dcc, bwd0[2], "bwd"))
+        if wg:
             pairs += [(f"dcol{i}", a, b, "bwd")
                       for i, (a, b) in enumerate(zip(dcol, bwd0[3]))]
         for name, a, b, which in pairs:
@@ -558,27 +606,31 @@ def run_trunks(results: dict) -> dict:
             iters=5)
         numel = [sum(t.numel() for t in I["geo"]) + I["Bs"][0].numel(),
                  sum(t.numel() for t in I["col"]) + I["Bs"][1].numel()]
-        n = I["p"].shape[0]
         b_f = bound_ms(*trunks_work(mcfg, n, with_color, False, False, False,
                                     *numel))
         b_b = bound_ms(*trunks_work(mcfg, n, with_color, True, need_dp, wg,
                                     *numel))
         case = {"with_color": with_color, "need_dp": need_dp, "n": n,
-                "fwd_ms": t_f, "fwd_plain_ms": tp_f, "fwd_bound_ms": b_f[0],
-                "bwd_ms": t_b, "bwd_plain_ms": tp_b, "bwd_bound_ms": b_b[0],
-                "bound_by": b_b[1], "rel_fro_max": max(stats.values())}
+                "need_wgrads": wg, "fwd_ms": t_f, "fwd_plain_ms": tp_f,
+                "fwd_bound_ms": b_f[0], "bwd_ms": t_b, "bwd_plain_ms": tp_b,
+                "bwd_bound_ms": b_b[0], "bwd_tc_bound_ms": b_b[2],
+                "bound_by": b_b[1], "bitwise_repeat": True,
+                "rel_fro_max": max(stats.values()),
+                "worst": max(stats, key=stats.get)}
         cases.append(case)
-        if with_color and not need_dp:
+        if with_color and not need_dp and n == 20000 and wg:
             main = (case, b_f, b_b)
     case, b_f, b_b = main
     results["trunks_fwd"] = {
         "max_abs_err": worst["fwd"], "ms": case["fwd_ms"],
         "plain_ms": case["fwd_plain_ms"], "bound_ms": b_f[0],
-        "bound_by": b_f[1], "library_ms": None}
+        "bound_by": b_f[1], "tc_bound_ms": b_f[2],
+        "library_ms": None}
     results["trunks_bwd"] = {
         "max_abs_err": worst["bwd"], "ms": case["bwd_ms"],
         "plain_ms": case["bwd_plain_ms"], "bound_ms": b_b[0],
-        "bound_by": b_b[1], "library_ms": None}
+        "bound_by": b_b[1], "tc_bound_ms": b_b[2],
+        "library_ms": None}
     return {"tolerance": {"grad_rel_fro": GRAD_REL_FRO,
                           "grad_elem": [GRAD_ELEM_TOL, GRAD_ELEM_FRAC]},
             "cases": cases}
@@ -771,11 +823,13 @@ def run_trackloss(results: dict) -> dict:
     results["trackloss_fwd"] = {
         "max_abs_err": worst["fwd"], "ms": case["fwd_ms"],
         "plain_ms": case["fwd_plain_ms"], "bound_ms": b_f[0],
-        "bound_by": b_f[1], "library_ms": None}
+        "bound_by": b_f[1], "tc_bound_ms": b_f[2],
+        "library_ms": None}
     results["trackloss_bwd"] = {
         "max_abs_err": worst["bwd"], "ms": case["bwd_ms"],
         "plain_ms": case["bwd_plain_ms"], "bound_ms": b_b[0],
-        "bound_by": b_b[1], "library_ms": None}
+        "bound_by": b_b[1], "tc_bound_ms": b_b[2],
+        "library_ms": None}
     return {"tolerance": {"grad_rel_fro": GRAD_REL_FRO,
                           "grad_elem": [GRAD_ELEM_TOL, GRAD_ELEM_FRAC],
                           "drays_vs_float64": COND_FACTOR},
@@ -962,11 +1016,13 @@ def run_composite(results: dict) -> dict:
     results["composite_fwd"] = {
         "max_abs_err": worst["fwd"], "ms": case["fwd_ms"],
         "plain_ms": case["fwd_plain_ms"], "bound_ms": b6[0],
-        "bound_by": b6[1], "library_ms": None}
+        "bound_by": b6[1], "tc_bound_ms": b6[2],
+        "library_ms": None}
     results["composite_bwd"] = {
         "max_abs_err": worst["bwd"], "ms": case["bwd_ms"],
         "plain_ms": case["bwd_plain_ms"], "bound_ms": b7[0],
-        "bound_by": b7[1], "library_ms": None}
+        "bound_by": b7[1], "tc_bound_ms": b7[2],
+        "library_ms": None}
     return {"tolerance": {"grad_rel_fro": GRAD_REL_FRO,
                           "grad_elem": [GRAD_ELEM_TOL, GRAD_ELEM_FRAC]},
             "cases": cases}
@@ -1008,10 +1064,10 @@ def run_scatter_repeat() -> dict:
 # kernel-name fragments of the device-time groups that --profile reports
 PROFILE_GROUPS = [
     ("maploss kernels", ("ml_", "loss_reduce")),
-    ("trunks kernel", ("tr_samples",)),
+    ("trunks kernels", ("tr_samples", "tr_bwd_tiles")),
     ("composite kernels", ("cp_",)),
     ("trackloss kernels", ("tl_",)),
-    ("weight-gradient passes (kernels 3, 5)", ("wgrad_",)),
+    ("weight-gradient passes", ("wgrad_", "wg_tc_")),
     ("topk_rows kernel", ("topk_rows",)),
     ("matmul (cuBLAS)", ("gemm", "sm90_xmma", "cutlass", "gemv", "dot_")),
     ("index / gather / scatter", ("index", "gather", "scatter")),
@@ -1291,6 +1347,7 @@ def main(argv=None) -> int:
                              "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
                              "bound_ms": r.get("bound_ms"),
                              "bound_by": r.get("bound_by"),
+                             "tc_bound_ms": r.get("tc_bound_ms"),
                              "library_ms": r.get("library_ms")})
     seconds["total"] = time.perf_counter() - t_all
     emit({"phase_seconds": seconds})

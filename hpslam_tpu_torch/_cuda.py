@@ -45,7 +45,7 @@ SIGNATURES = {
           _P], _I),
     ],
     "trunks": [
-        ("hp_trunks_scratch_floats", [_I] * 9, _L),
+        ("hp_trunks_scratch_floats", [_I] * 8, _L),
         ("hp_trunks",
          [_P, _P, _P, _P, _P, _P, _P,            # p cg cc Bg Bc gw cw
           _I, _I, _I, _I, _I, _I, _I, _I,        # n C emb/hid nb skip

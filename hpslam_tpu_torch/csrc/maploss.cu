@@ -14,36 +14,37 @@
 // Layout.  A TPU grid step owned a block of rays with all weights in VMEM
 // and carried the loss and weight-gradient sums from step to step.  Blocks
 // on the card run in no order, so the work is split into passes:
-//   1. one thread per (ray, sample): union mix, embeds, both trunk
-//      forwards.  Every intermediate (embedding, pre-activations, block
-//      outputs) is written to a scratch table of rows of length M = n*S
-//      ("transposed": a warp's 32 samples touch 32 consecutive floats).
+//   1. per sample: union mix, embeds, both trunk forwards; the outputs,
+//      pre-activations and (for the weight gradients) layer inputs go to a
+//      scratch table of rows of length M = n*S ("transposed": row t holds
+//      component t of every sample).  Kernel #2 runs the scalar pass of
+//      nicer_trunk.cuh, one thread per sample (ml_fwd_samples); kernel #3
+//      the tensor-core tile pass of nicer_trunk_tc.cuh (ml_fwd_tiles).
 //   2. one thread per ray: compositor, affine, per-ray losses and, in the
 //      combined form, the compositor backward (cotangents of occupancy,
 //      raw colour and the affine rows).
-//   3. one thread per sample: both trunk backwards over the saved rows,
-//      giving d(c_geo), d(c_col) and the per-sample cotangents that the
-//      weight gradients need.
+//   3. (kernel #3) a tile of samples per block: both trunk backwards on
+//      tensor cores, giving d(c_geo), d(c_col) and the per-sample
+//      cotangents that the weight gradients need (ml_bwd_tiles).
 //   4. one thread per output element: union-mix backward into d(uf).
-//   5. weight gradients as products of saved rows, X^T dY summed over the
-//      M samples: a tiled kernel over (in, out) tiles and fixed sample
-//      ranges, then a pass that adds the ranges in a fixed order.
+//   5. the colour core's weight gradients, X^T dY over the M samples on
+//      tensor cores in fixed sample ranges, then a pass that adds the
+//      ranges in a fixed order (launch_core_wgrads_tc).
 //   6. the two loss sums: one block adds the per-ray partials in a fixed
 //      order.
 // No atomics are used, so the result does not change from run to run.
 // The sums are taken in another order than the Pallas kernel's and the
 // plain PyTorch version's, which is what the stated tolerances cover.
 //
-// The embeds, trunks and weight-gradient passes are the shared device code
-// of nicer_trunk.cuh (also used by trunks.cu and trackloss.cu).
-//
 // Bound on the card: operations.  At the mapping operating point the two
 // trunks cost about 0.2 MFLOP per sample forward and twice that backward,
-// against a few kB of input per sample.  This first version runs them as
-// scalar f32 FMAs one sample per thread, far from the tensor-core rate;
-// moving the trunks onto wgmma tiles with TMA-fed weights is later work.
+// against a few kB of input per sample.  Kernel #3 runs every trunk and
+// weight-gradient product on the tensor cores at f32 accuracy (3xTF32
+// mma.sync, nicer_trunk_tc.cuh), with each tile's activations and each
+// layer's weights in shared memory; kernel #2 keeps the first version's
+// scalar f32 FMAs, one sample per thread.
 
-#include "nicer_trunk.cuh"
+#include "nicer_trunk_tc.cuh"
 
 struct Shape {
   int n, S, u, C, D, ufw, fstride;
@@ -212,14 +213,92 @@ __global__ void ml_rays(const float* __restrict__ row,
   }
 }
 
-// Pass 3: one thread per sample, both trunk backwards.
-__global__ void ml_bwd_samples(Core gw, Core cw, Rows rg, Rows rc,
-                               Shape sh) {
+// Union mix of one trunk's channels (offset ch0 in each union slot) for
+// the tile: Cs (TC_TM x C) and, if Cg is given, the feature rows.
+__device__ void tile_mix(const float* __restrict__ row,
+                         const float* __restrict__ uf, const Shape& sh,
+                         int ch0, float* Cs, float* Cg, long m0, long M) {
+  const int S = sh.S, u = sh.u, C = sh.C;
+  for (int e = threadIdx.x; e < TC_TM * C; e += blockDim.x) {
+    const int ch = e / TC_TM, r = e % TC_TM;
+    const long m = m0 + r;
+    float v = 0.0f;
+    if (m < M) {
+      const long ray = m / S;
+      const int s = (int)(m % S);
+      const float* rp = row + ray * sh.D;
+      const float* wm = rp + 5 * S + 7 + s * u;
+      const float* ur = uf + ray * sh.ufw;
+      float acc = 0.0f;
+      for (int j = 0; j < u; ++j)
+        acc = fmaf(wm[j], ur[j * sh.fstride + ch0 + ch], acc);
+      v = rp[4 * S + 7 + s] > 0.5f ? acc : 0.0f;
+      if (Cg) Cg[(long)ch * M + m] = v;
+    }
+    Cs[r * (C + 4) + ch] = v;
+  }
+}
+
+// Pass 1 of kernel #3: a tile of TC_TM samples per block, m = ray*S + s.
+// Both trunk forwards on tensor cores; with wgrads the colour trunk's
+// layer inputs go to its rows too.
+__global__ void __launch_bounds__(TC_THREADS)
+    ml_fwd_tiles(const float* __restrict__ row, const float* __restrict__ uf,
+                 const float* __restrict__ Bg, const float* __restrict__ Bc,
+                 Core gw, Core cw, Rows rg, Rows rc, Shape sh, TcSmem sm,
+                 int wgrads) {
+  extern __shared__ float4 tc_raw[];
+  const TcTile T = tc_tile((float*)tc_raw, sm);
   const long M = (long)sh.n * sh.S;
-  const long m = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (m >= M) return;
-  trunk_bwd(gw, rg, 0, m, M, false);
-  if (sh.with_color) trunk_bwd(cw, rc, 1, m, M, false);
+  const long m0 = (long)blockIdx.x * TC_TM;
+  const int S = sh.S;
+  for (int e = threadIdx.x; e < TC_TM * 3; e += blockDim.x) {
+    const long m = m0 + e / 3;
+    T.Ps[e] = m < M ? row[(m / S) * sh.D + S + 3 * (m % S) + e % 3] : 0.0f;
+  }
+  tile_mix(row, uf, sh, 0, T.Cs, nullptr, m0, M);
+  __syncthreads();
+  const int embp_g = round8(gw.emb);
+  tile_embed(T.Ps, Bg, false, gw.emb, embp_g, T.Es, nullptr, m0, M);
+  __syncthreads();
+  tc_trunk_fwd(gw, rg, 0, T, embp_g, m0, M, false, true);
+  if (!sh.with_color) return;
+  __syncthreads();
+  const int embp_c = round8(cw.emb);
+  tile_mix(row, uf, sh, sh.C, T.Cs, wgrads ? rc.Cf : nullptr, m0, M);
+  tile_embed(T.Ps, Bc, true, cw.emb, embp_c, T.Es, wgrads ? rc.E : nullptr,
+             m0, M);
+  __syncthreads();
+  tc_trunk_fwd(cw, rc, 1, T, embp_c, m0, M, wgrads != 0, true);
+}
+
+// Gs (TC_TM x 8, zero beyond nout) from nout rows of a table.
+__device__ void tile_rows_to_g(const float* G, int nout, float* Gs, long m0,
+                               long M) {
+  for (int e = threadIdx.x; e < TC_TM * 8; e += blockDim.x) {
+    const int c = e / TC_TM, r = e % TC_TM;
+    Gs[r * TC_GLD + c] =
+        (c < nout && m0 + r < M) ? G[(long)c * M + m0 + r] : 0.0f;
+  }
+}
+
+// Pass 3 of kernel #3: both trunk backwards on a tile, from the output
+// cotangents pass 2 left in the G rows; d(c) to the DC rows.
+__global__ void __launch_bounds__(TC_THREADS)
+    ml_bwd_tiles(Core gw, Core cw, Rows rg, Rows rc, Shape sh, TcSmem sm,
+                 int wgrads) {
+  extern __shared__ float4 tc_raw[];
+  const TcTile T = tc_tile((float*)tc_raw, sm);
+  const long M = (long)sh.n * sh.S;
+  const long m0 = (long)blockIdx.x * TC_TM;
+  tile_rows_to_g(rg.G, 1, T.Gs, m0, M);
+  tc_trunk_bwd(gw, rg, 0, T, round8(gw.emb), m0, M, false, false);
+  tile_to_rows(T.Cs, sh.C + 4, sh.C, rg.DC, m0, M);
+  if (!sh.with_color) return;
+  __syncthreads();
+  tile_rows_to_g(rc.G, 3, T.Gs, m0, M);
+  tc_trunk_bwd(cw, rc, 1, T, round8(cw.emb), m0, M, false, wgrads != 0);
+  tile_to_rows(T.Cs, sh.C + 4, sh.C, rc.DC, m0, M);
 }
 
 // Pass 4: duf[ray, j*fstride + ch] = sum_s Wm[ray, s, j] * pm_s * dc_s[ch],
@@ -292,8 +371,9 @@ extern "C" long hp_maploss_scratch_floats(int n, int S, int C, int emb_g,
 //     dcw (flatten_core order, 4*nb+2 device pointers).
 // gw / cw: host arrays of device pointers to the geometry / colour core
 // tensors in flatten_core order.  scratch holds
-// hp_maploss_scratch_floats(...) floats; wpart holds
-// wsplits * (emb_c + hid_c) * hid_c floats.  Returns the first CUDA error.
+// hp_maploss_scratch_floats(...) floats; wpart holds wsplits times the
+// colour core's element count (every weight and bias).  Kernel #3 needs
+// hid_g, hid_c and C to be multiples of 8.  Returns the first CUDA error.
 extern "C" int hp_maploss(
     const float* row, int D, const float* uf, int ufw, const float* okf,
     const float* aff, const float* Bg, const float* Bc,
@@ -326,10 +406,24 @@ extern "C" int hp_maploss(
   sh.use_affine = use_affine; sh.coef = coef; sh.w_color = w_color;
 
   const int TB = 128;
-  const unsigned gs = (unsigned)((M + TB - 1) / TB);
-  ml_fwd_samples<<<gs, TB, 0, st>>>(row, uf, Bg, Bc, gcore, ccore, rg, rc,
-                                    sh);
-  cudaError_t e = cudaGetLastError();
+  const unsigned gt = (unsigned)((M + TC_TM - 1) / TC_TM);
+  const TcSmem sm = tc_smem(round8(emb_g), hid_g, round8(emb_c), hid_c, C,
+                            with_color != 0);
+  const int smem = sm.total * (int)sizeof(float);
+  const int wg = with_color && need_wgrads;
+  cudaError_t e;
+  if (backward) {
+    if (hid_g % 8 || hid_c % 8 || C % 8) return (int)cudaErrorInvalidValue;
+    int rc1 = tc_smem_attr(ml_fwd_tiles, smem);
+    if (!rc1) rc1 = tc_smem_attr(ml_bwd_tiles, smem);
+    if (rc1) return rc1;
+    ml_fwd_tiles<<<gt, TC_THREADS, smem, st>>>(row, uf, Bg, Bc, gcore, ccore,
+                                               rg, rc, sh, sm, wg);
+  } else {
+    ml_fwd_samples<<<(unsigned)((M + TB - 1) / TB), TB, 0, st>>>(
+        row, uf, Bg, Bc, gcore, ccore, rg, rc, sh);
+  }
+  e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   ml_rays<<<(unsigned)((n + TB - 1) / TB), TB, 0, st>>>(
       row, okf, aff, rg, rc, sh, backward, ray_loss, daff);
@@ -340,7 +434,8 @@ extern "C" int hp_maploss(
   if (e != cudaSuccess) return (int)e;
   if (!backward) return 0;
 
-  ml_bwd_samples<<<gs, TB, 0, st>>>(gcore, ccore, rg, rc, sh);
+  ml_bwd_tiles<<<gt, TC_THREADS, smem, st>>>(gcore, ccore, rg, rc, sh, sm,
+                                             wg);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const long tot = (long)n * ufw;
@@ -348,8 +443,8 @@ extern "C" int hp_maploss(
                                                               sh, duf);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  if (!(with_color && need_wgrads)) return 0;
+  if (!wg) return 0;
 
   // colour-core weight grads, flatten_core order
-  return launch_core_wgrads(ccore, rc, M, wpart, wsplits, dcw, st);
+  return launch_core_wgrads_tc(ccore, rc, M, wpart, wsplits, dcw, st);
 }

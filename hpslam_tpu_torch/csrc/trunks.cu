@@ -7,43 +7,42 @@
 //
 // Forward (kernel #4): one thread per sample computes the Fourier embeds,
 // the ReLU geometry trunk and, with colour, the Softplus(beta=100) colour
-// trunk, and writes occ (n,) and raw rgb (n, 3) (zero without colour).
+// trunk, and writes occ (n,) and raw rgb (n, 3) (zero without colour), on
+// the scalar f32 device code of nicer_trunk.cuh.
 //
-// Backward (kernel #5): one thread per sample recomputes the forward (as
-// the Pallas kernel does), takes the output cotangents and runs both trunk
-// backwards, giving d(c_geo), d(c_col) and, with need_dp, the cotangent of
-// the sample positions through the embeds:
+// Backward (kernel #5): a block per tile of TC_TM samples recomputes the
+// forward (as the Pallas kernel does), takes the output cotangents and runs
+// both trunk backwards, giving d(c_geo), d(c_col) and, with need_dp, the
+// cotangent of the sample positions through the embeds:
 //   dp = 2 pi (cos(proj_g) d_eg) Bg^T
 //      + 2 pi (cos(proj_c) d_ec_sin - sin(proj_c) d_ec_cos) Bc^T.
 // Then, with need_wgrads and colour, the colour core's weight gradients,
-// summed over every sample by the deterministic tiled passes of
-// nicer_trunk.cuh (no atomics).  The geometry core and both Fourier B
-// matrices are frozen, as in the reference: no gradient is computed.
+// summed over every sample in fixed ranges (no atomics).  Every trunk and
+// weight-gradient product runs on the tensor cores at f32 accuracy (3xTF32
+// mma.sync, nicer_trunk_tc.cuh), with the tile's activations and each
+// layer's weights in shared memory; only the pre-activations and the rows
+// the weight gradients read go to global memory.  The geometry core and
+// both Fourier B matrices are frozen, as in the reference: no gradient is
+// computed.
 //
 // Bound on the card: operations (about 0.2 MFLOP per sample forward and
-// twice that backward, against ~0.3 kB of input per sample).  This first
-// version runs the trunks as scalar f32 FMAs one sample per thread, far
-// from the tensor-core rate; wgmma tiles with TMA-fed weights are later
-// work.
-#include "nicer_trunk.cuh"
+// twice that backward, against ~0.3 kB of input per sample).  The forward
+// kernel still runs the scalar f32 FMAs one sample per thread, far from the
+// tensor-core rate.
+#include "nicer_trunk_tc.cuh"
 
 struct TShape {
-  int n, C, with_color, backward, need_dp;
+  int n, C, with_color, need_dp;
 };
 
-// One thread per sample: forward, and with `backward` the trunk backwards
-// and the per-sample cotangents.
+// Kernel #4: one thread per sample, the forward.
 __global__ void tr_samples(const float* __restrict__ p,
                            const float* __restrict__ cg,
                            const float* __restrict__ cc,
                            const float* __restrict__ Bg,
                            const float* __restrict__ Bc, Core gw, Core cw,
                            Rows rg, Rows rc, TShape sh,
-                           const float* __restrict__ g_occ,
-                           const float* __restrict__ g_rgb,
-                           float* __restrict__ occ, float* __restrict__ rgb,
-                           float* __restrict__ dp, float* __restrict__ dcg,
-                           float* __restrict__ dcc) {
+                           float* __restrict__ occ, float* __restrict__ rgb) {
   const long M = sh.n;
   const long m = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (m >= M) return;
@@ -57,38 +56,111 @@ __global__ void tr_samples(const float* __restrict__ p,
     embed_fwd(pm, Bc, true, rc, cw.emb, m, M);
     trunk_fwd(cw, rc, 1, m, M);
   }
-  if (!sh.backward) {
-    occ[m] = rg.G[m];
-    for (int c = 0; c < 3; ++c)
-      rgb[3 * m + c] = sh.with_color ? rc.G[(long)c * M + m] : 0.0f;
-    return;
+  occ[m] = rg.G[m];
+  for (int c = 0; c < 3; ++c)
+    rgb[3 * m + c] = sh.with_color ? rc.G[(long)c * M + m] : 0.0f;
+}
+
+// Cs (TC_TM x C) from a sample-major (n, C) feature and, if Cg is given,
+// the feature rows.
+__device__ void tile_feat(const float* __restrict__ c, int C, float* Cs,
+                          float* Cg, long m0, long M) {
+  for (int e = threadIdx.x; e < TC_TM * C; e += blockDim.x) {
+    const int r = e / C, ch = e % C;
+    const long m = m0 + r;
+    float v = 0.0f;
+    if (m < M) {
+      v = c[m * C + ch];
+      if (Cg) Cg[(long)ch * M + m] = v;
+    }
+    Cs[r * (C + 4) + ch] = v;
   }
-  const bool need_dp = sh.need_dp != 0;
-  rg.G[m] = g_occ[m];
-  trunk_bwd(gw, rg, 0, m, M, need_dp);
-  for (int ch = 0; ch < C; ++ch) dcg[m * C + ch] = rg.DC[(long)ch * M + m];
+}
+
+// Gs (TC_TM x 8, zero beyond nout) from a sample-major (n, nout) cotangent
+// and, if Gg is given, the G rows.
+__device__ void tile_cot(const float* __restrict__ g, int nout, float* Gs,
+                         float* Gg, long m0, long M) {
+  for (int e = threadIdx.x; e < TC_TM * 8; e += blockDim.x) {
+    const int r = e / 8, c = e % 8;
+    const long m = m0 + r;
+    float v = 0.0f;
+    if (c < nout && m < M) {
+      v = g[m * nout + c];
+      if (Gg) Gg[(long)c * M + m] = v;
+    }
+    Gs[r * TC_GLD + c] = v;
+  }
+}
+
+// (n, C) rows of a sample-major output from Cs.
+__device__ void tile_feat_out(const float* Cs, int C, float* out, long m0,
+                              long M) {
+  for (int e = threadIdx.x; e < TC_TM * C; e += blockDim.x) {
+    const int r = e / C, ch = e % C;
+    if (m0 + r < M) out[(m0 + r) * C + ch] = Cs ? Cs[r * (C + 4) + ch] : 0.0f;
+  }
+}
+
+// Kernel #5: a tile of TC_TM samples per block.  Forward recomputed, both
+// trunk backwards and the per-sample cotangents; with wgrads the colour
+// trunk's rows for the weight gradients.
+__global__ void __launch_bounds__(TC_THREADS)
+    tr_bwd_tiles(const float* __restrict__ p, const float* __restrict__ cg,
+                 const float* __restrict__ cc, const float* __restrict__ Bg,
+                 const float* __restrict__ Bc, Core gw, Core cw, Rows rg,
+                 Rows rc, TShape sh, TcSmem sm, int wgrads,
+                 const float* __restrict__ g_occ,
+                 const float* __restrict__ g_rgb, float* __restrict__ dp,
+                 float* __restrict__ dcg, float* __restrict__ dcc) {
+  extern __shared__ float4 tc_raw[];
+  const TcTile T = tc_tile((float*)tc_raw, sm);
+  const long M = sh.n;
+  const long m0 = (long)blockIdx.x * TC_TM;
+  const int C = sh.C;
+  const bool need_dp = sh.need_dp != 0, wg = wgrads != 0;
+  for (int e = threadIdx.x; e < TC_TM * 3; e += blockDim.x)
+    T.Ps[e] = m0 + e / 3 < M ? p[3 * m0 + e] : 0.0f;
+  tile_feat(cg, C, T.Cs, nullptr, m0, M);
+  __syncthreads();
+  const int embp_g = round8(gw.emb);
+  tile_embed(T.Ps, Bg, false, gw.emb, embp_g, T.Es, nullptr, m0, M);
+  __syncthreads();
+  tc_trunk_fwd(gw, rg, 0, T, embp_g, m0, M, false, false);
+  tile_cot(g_occ, 1, T.Gs, nullptr, m0, M);
+  tc_trunk_bwd(gw, rg, 0, T, embp_g, m0, M, need_dp, false);
+  tile_feat_out(T.Cs, C, dcg, m0, M);
   float dpg[3] = {0.0f, 0.0f, 0.0f}, dpc[3] = {0.0f, 0.0f, 0.0f};
-  if (need_dp) embed_bwd(pm, Bg, false, rg, gw.emb, m, M, dpg);
+  if (need_dp && threadIdx.x < TC_TM)
+    tile_embed_bwd(T.Ps, Bg, false, gw.emb, embp_g, T.Es, dpg);
+  __syncthreads();
   if (sh.with_color) {
-    for (int c = 0; c < 3; ++c) rc.G[(long)c * M + m] = g_rgb[3 * m + c];
-    trunk_bwd(cw, rc, 1, m, M, need_dp);
-    for (int ch = 0; ch < C; ++ch)
-      dcc[m * C + ch] = rc.DC[(long)ch * M + m];
-    if (need_dp) embed_bwd(pm, Bc, true, rc, cw.emb, m, M, dpc);
+    const int embp_c = round8(cw.emb);
+    tile_feat(cc, C, T.Cs, wg ? rc.Cf : nullptr, m0, M);
+    tile_embed(T.Ps, Bc, true, cw.emb, embp_c, T.Es, wg ? rc.E : nullptr,
+               m0, M);
+    __syncthreads();
+    tc_trunk_fwd(cw, rc, 1, T, embp_c, m0, M, wg, false);
+    tile_cot(g_rgb, 3, T.Gs, wg ? rc.G : nullptr, m0, M);
+    tc_trunk_bwd(cw, rc, 1, T, embp_c, m0, M, need_dp, wg);
+    tile_feat_out(T.Cs, C, dcc, m0, M);
+    if (need_dp && threadIdx.x < TC_TM)
+      tile_embed_bwd(T.Ps, Bc, true, cw.emb, embp_c, T.Es, dpc);
   } else {
-    for (int ch = 0; ch < C; ++ch) dcc[m * C + ch] = 0.0f;
+    tile_feat_out(nullptr, C, dcc, m0, M);
   }
-  for (int d = 0; d < 3; ++d)
-    dp[3 * m + d] = 6.2831855f * dpg[d] + 6.2831855f * dpc[d];
+  const long m = m0 + threadIdx.x;
+  if (threadIdx.x < TC_TM && m < M)
+    for (int d = 0; d < 3; ++d)
+      dp[3 * m + d] = 6.2831855f * dpg[d] + 6.2831855f * dpc[d];
 }
 
 // Floats of scratch the entry point needs for n samples.
 extern "C" long hp_trunks_scratch_floats(int n, int C, int emb_g, int hid_g,
                                          int emb_c, int hid_c, int nb,
-                                         int with_color, int need_dp) {
-  long rows = trunk_rows(emb_g, hid_g, C, nb, 1, need_dp ? emb_g : 0);
-  if (with_color)
-    rows += trunk_rows(emb_c, hid_c, C, nb, 3, need_dp ? emb_c : 0);
+                                         int with_color) {
+  long rows = trunk_rows(emb_g, hid_g, C, nb, 1);
+  if (with_color) rows += trunk_rows(emb_c, hid_c, C, nb, 3);
   return rows * (long)n;
 }
 
@@ -100,8 +172,10 @@ extern "C" long hp_trunks_scratch_floats(int n, int C, int emb_g, int hid_g,
 //     order, 4*nb+2 device pointers).
 // p (n, 3), cg / cc (n, C); Bg (3, emb_g), Bc (3, emb_c / 2); gw / cw: host
 // arrays of device pointers to the core tensors in flatten_core order.
-// scratch holds hp_trunks_scratch_floats(...) floats; wpart holds
-// wsplits * (emb_c + hid_c) * hid_c floats.  Returns the first CUDA error.
+// scratch holds hp_trunks_scratch_floats(...) floats; wpart holds wsplits
+// times the colour core's element count (every weight and bias).  Kernel
+// #5 needs hid_g, hid_c and C to be multiples of 8.  Returns the first
+// CUDA error.
 extern "C" int hp_trunks(
     const float* p, const float* cg, const float* cc, const float* Bg,
     const float* Bc, const void* const* gw, const void* const* cw, int n,
@@ -118,21 +192,31 @@ extern "C" int hp_trunks(
   Core gcore = make_core(gw, nb, skip, emb_g, hid_g, C, 1);
   Core ccore = with_color ? make_core(cw, nb, skip, emb_c, hid_c, C, 3)
                           : gcore;
-  Rows rg = make_rows(scratch, M, emb_g, hid_g, C, nb, 1, de ? emb_g : 0);
+  Rows rg = make_rows(scratch, M, emb_g, hid_g, C, nb, 1);
   Rows rc = rg;
   if (with_color)
-    rc = make_rows(scratch + trunk_rows(emb_g, hid_g, C, nb, 1,
-                                        de ? emb_g : 0) * M,
-                   M, emb_c, hid_c, C, nb, 3, de ? emb_c : 0);
+    rc = make_rows(scratch + trunk_rows(emb_g, hid_g, C, nb, 1) * M, M,
+                   emb_c, hid_c, C, nb, 3);
   TShape sh;
-  sh.n = n; sh.C = C; sh.with_color = with_color; sh.backward = backward;
-  sh.need_dp = de;
-  const int TB = 128;
-  tr_samples<<<(unsigned)((M + TB - 1) / TB), TB, 0, st>>>(
-      p, cg, cc, Bg, Bc, gcore, ccore, rg, rc, sh, g_occ, g_rgb, occ, rgb,
-      dp, dcg, dcc);
+  sh.n = n; sh.C = C; sh.with_color = with_color; sh.need_dp = de;
+  if (!backward) {
+    const int TB = 128;
+    tr_samples<<<(unsigned)((M + TB - 1) / TB), TB, 0, st>>>(
+        p, cg, cc, Bg, Bc, gcore, ccore, rg, rc, sh, occ, rgb);
+    return (int)cudaGetLastError();
+  }
+  if (hid_g % 8 || hid_c % 8 || C % 8) return (int)cudaErrorInvalidValue;
+  const TcSmem sm = tc_smem(round8(emb_g), hid_g, round8(emb_c), hid_c, C,
+                            with_color != 0);
+  const int smem = sm.total * (int)sizeof(float);
+  const int rc1 = tc_smem_attr(tr_bwd_tiles, smem);
+  if (rc1) return rc1;
+  const int wg = with_color && need_wgrads;
+  tr_bwd_tiles<<<(unsigned)((M + TC_TM - 1) / TC_TM), TC_THREADS, smem, st>>>(
+      p, cg, cc, Bg, Bc, gcore, ccore, rg, rc, sh, sm, wg, g_occ, g_rgb, dp,
+      dcg, dcc);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  if (!(backward && with_color && need_wgrads)) return 0;
-  return launch_core_wgrads(ccore, rc, M, wpart, wsplits, dcw, st);
+  if (!wg) return 0;
+  return launch_core_wgrads_tc(ccore, rc, M, wpart, wsplits, dcw, st);
 }

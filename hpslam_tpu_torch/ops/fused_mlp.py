@@ -6,7 +6,9 @@ CUDA tensors, launches its kernel or raises.
 * ``nicer_fused_maploss`` (reference :1365): the union path's
   whole-iteration mapping loss, kernels #2 and #3 (``csrc/maploss.cu``):
   the forward (losses only, replacing `_maploss_fwd_kernel`) and the
-  combined forward-plus-cotangents (replacing `_maploss_bwd_kernel`).
+  combined forward-plus-cotangents (replacing `_maploss_bwd_kernel`), whose
+  trunk passes and weight gradients run on the tensor cores at f32
+  accuracy (``csrc/nicer_trunk_tc.cuh``).
   Under autograd the combined kernel is the only launch:
   ``_MapLoss.forward`` runs it and stashes the cotangents,
   ``_MapLoss.backward`` scales them by the incoming cotangent, as the
@@ -15,8 +17,8 @@ CUDA tensors, launches its kernel or raises.
   autograd.
 * ``nicer_fused_color`` / ``nicer_fused_geo`` (reference :611, :653): the
   two decoder trunks, kernels #4 and #5 (``csrc/trunks.cu``), forward and
-  remat backward.  Plain versions: ``fused_trunks_plain`` and
-  ``fused_trunks_plain_bwd``.
+  remat backward, the backward on the tensor cores as #3's.  Plain
+  versions: ``fused_trunks_plain`` and ``fused_trunks_plain_bwd``.
 * ``nicer_fused_trackloss`` (reference :1829): the tracker's
   pose-differentiable render, kernels #8 and #9 (``csrc/trackloss.cu``).
   Plain version: ``trackloss_plain``, differentiated by autograd.
@@ -161,6 +163,23 @@ def _ptr_array(tensors):
     return arr
 
 
+def _wgrad_partials(col_flat, M: int, dev):
+    """(ranges, scratch) of the tensor-core weight gradients of kernels #3
+    and #5: ceil(M / 1024) fixed sample ranges, each with a partial of every
+    weight and bias of the colour core."""
+    wsplits = max(1, -(-M // 1024))
+    numel = sum(w.numel() for w in col_flat)
+    return wsplits, torch.empty((wsplits * numel,), dtype=torch.float32,
+                                device=dev)
+
+
+def _check_tc_widths(what, *widths):
+    if any(w % 8 for w in widths):
+        raise ValueError(f"{what}: the tensor-core kernel needs hidden and "
+                         f"feature widths that are multiples of 8, got "
+                         f"{widths}")
+
+
 def launch_maploss(uf, aff, col_flat, row, okf, geo_flat, Bs, n_blocks,
                    skip, with_color, S, u, C, coef, sigmoid_rgb, use_affine,
                    w_color, backward: bool, need_wgrads: bool, lib=None,
@@ -172,6 +191,8 @@ def launch_maploss(uf, aff, col_flat, row, okf, geo_flat, Bs, n_blocks,
     dev = row.device
     hid_g, hid_c = geo_flat[0].shape[1], col_flat[0].shape[1]
     emb_g, emb_c = Bg.shape[1], 2 * Bc.shape[1]
+    if backward:
+        _check_tc_widths("maploss", hid_g, hid_c, C)
     lib = lib or _cuda.lib("maploss")
     if stream is None:
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -187,9 +208,7 @@ def launch_maploss(uf, aff, col_flat, row, okf, geo_flat, Bs, n_blocks,
         daff = torch.empty((n, 12), dtype=torch.float32, device=dev)
         if with_color and need_wgrads:
             dcol = [torch.empty_like(w) for w in col_flat]
-            wsplits = max(1, -(-(n * S) // 1024))
-            wpart = torch.empty((wsplits * (emb_c + hid_c) * hid_c,),
-                                dtype=torch.float32, device=dev)
+            wsplits, wpart = _wgrad_partials(col_flat, n * S, dev)
     gw = _ptr_array(geo_flat)
     cw = _ptr_array(col_flat if with_color else geo_flat)
     dcw = _ptr_array(dcol) if dcol else None
@@ -380,16 +399,17 @@ def launch_trunks(p, c_geo, c_col, Bs, geo_flat, col_flat, n_blocks, skip,
     Bg, Bc = Bs
     n, C = c_geo.shape
     dev = p.device
-    lib = _cuda.lib("trunks")
-    stream = torch.cuda.current_stream(dev).cuda_stream
     hid_g, emb_g = geo_flat[0].shape[1], Bg.shape[1]
     hid_c = col_flat[0].shape[1] if with_color else hid_g
     emb_c = 2 * Bc.shape[1] if with_color else emb_g
     need_dp = bool(backward and need_dp)
     wgrads = bool(backward and with_color and need_wgrads)
+    if backward:
+        _check_tc_widths("trunks", hid_g, hid_c, C)
+    lib = _cuda.lib("trunks")
+    stream = torch.cuda.current_stream(dev).cuda_stream
     n_scr = lib.hp_trunks_scratch_floats(n, C, emb_g, hid_g, emb_c, hid_c,
-                                         n_blocks, int(with_color),
-                                         int(need_dp))
+                                         n_blocks, int(with_color))
     scratch = torch.empty((n_scr,), dtype=torch.float32, device=dev)
     occ = rgb = dp = dcg = dcc = wpart = None
     dcol = []
@@ -400,9 +420,7 @@ def launch_trunks(p, c_geo, c_col, Bs, geo_flat, col_flat, n_blocks, skip,
         dcc = torch.empty((n, C), dtype=torch.float32, device=dev)
         if wgrads:
             dcol = [torch.empty_like(w) for w in col_flat]
-            wsplits = max(1, -(-n // 1024))
-            wpart = torch.empty((wsplits * (emb_c + hid_c) * hid_c,),
-                                dtype=torch.float32, device=dev)
+            wsplits, wpart = _wgrad_partials(col_flat, n, dev)
     else:
         occ = torch.empty((n,), dtype=torch.float32, device=dev)
         rgb = torch.empty((n, 3), dtype=torch.float32, device=dev)

@@ -79,18 +79,38 @@ def _maploss_case(dev, with_color, n=600, S=5, u=8):
     return mcfg, row, uf, okf, aff, geo, col, Bs
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("with_color", [True, False])
-def test_maploss_kernels_match_plain(cuda, with_color):
-    mcfg, row, uf, okf, aff, geo, col, Bs = _maploss_case(cuda, with_color)
-    kw = dict(n_blocks=mcfg.n_blocks, skip=mcfg.skip, with_color=with_color,
-              S=5, u=8, C=mcfg.c_dim, coef=0.1, sigmoid_rgb=True,
-              use_affine=False)
+def _maploss_kernel_grads(uf, aff, col, row, okf, geo, Bs, need_wgrads, kw):
     ufk = uf.clone().requires_grad_()
     colk = [w.clone().requires_grad_() for w in col]
     glk, clk = FM.nicer_fused_maploss(ufk, aff, colk, row, okf, geo, Bs,
-                                      w_color=0.1, **kw)
+                                      w_color=0.1, need_wgrads=need_wgrads,
+                                      **kw)
     (glk + 0.1 * clk).backward()
+    return glk, clk, ufk, colk
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_color,n,need_wgrads", [
+    (True, 600, True), (False, 600, True), (True, 4001, True),
+    (True, 600, False)])
+def test_maploss_kernels_match_plain(cuda, with_color, n, need_wgrads):
+    """Kernels #2 and #3 against the plain version under autograd: colour
+    and geometry only, a ragged n (4001 rays, 20005 samples: not a multiple
+    of the 64-sample tile) and colour without the weight gradients; two
+    launches of kernel #3 on the same inputs agree bit for bit."""
+    mcfg, row, uf, okf, aff, geo, col, Bs = _maploss_case(cuda, with_color,
+                                                          n=n)
+    kw = dict(n_blocks=mcfg.n_blocks, skip=mcfg.skip, with_color=with_color,
+              S=5, u=8, C=mcfg.c_dim, coef=0.1, sigmoid_rgb=True,
+              use_affine=False)
+    glk, clk, ufk, colk = _maploss_kernel_grads(uf, aff, col, row, okf, geo,
+                                                Bs, need_wgrads, kw)
+    gl2, cl2, uf2, col2 = _maploss_kernel_grads(uf, aff, col, row, okf, geo,
+                                                Bs, need_wgrads, kw)
+    assert torch.equal(glk, gl2) and torch.equal(clk, cl2)
+    assert torch.equal(ufk.grad, uf2.grad)
+    if with_color:
+        assert all(torch.equal(a.grad, b.grad) for a, b in zip(colk, col2))
     ufp = uf.clone().requires_grad_()
     colp = [w.clone().requires_grad_() for w in col]
     glp, clp = FM.maploss_plain(ufp, aff, colp, row, okf, geo, Bs, **kw)
@@ -104,8 +124,10 @@ def test_maploss_kernels_match_plain(cuda, with_color):
         a, b = float(a.detach()), float(b.detach())
         assert abs(a - b) <= 1e-4 * max(abs(b), 1e-6)
     pairs = [(ufk.grad, ufp.grad)]
-    if with_color:
+    if with_color and need_wgrads:
         pairs += [(a.grad, b.grad) for a, b in zip(colk, colp)]
+    elif with_color:
+        assert not any(a.grad.any() for a in colk)
     for a, b in pairs:
         rel = float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
         assert rel <= 1e-4, rel
@@ -123,15 +145,20 @@ def _values_close(a, b, name):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("with_color,need_dp", [(True, False), (True, True),
-                                                (False, True)])
-def test_trunks_kernels_match_plain(cuda, with_color, need_dp):
+@pytest.mark.parametrize("with_color,need_dp,n,need_wgrads", [
+    (True, False, 3000, True), (True, True, 3000, True),
+    (False, True, 3000, False), (True, False, 20003, True),
+    (True, False, 3000, False)])
+def test_trunks_kernels_match_plain(cuda, with_color, need_dp, n,
+                                    need_wgrads):
     """Kernels #4 (forward) and #5 (backward) through their autograd
     wrapper (nicer_fused_color / nicer_fused_geo) against fused_trunks_plain
     and fused_trunks_plain_bwd at the full model width (chip_smoke.py's
-    inputs, fewer samples)."""
+    inputs): colour, with the position cotangent, geometry only, a ragged n
+    (20003 samples: not a multiple of the 64-sample tile) and colour
+    without the weight gradients.  Two runs agree bit for bit."""
     import chip_smoke
-    I = chip_smoke.trunks_inputs(torch, cuda, n=3000)
+    I = chip_smoke.trunks_inputs(torch, cuda, n=n)
     mcfg, g_occ, g_rgb, Bs = I["mcfg"], I["g_occ"], I["g_rgb"], I["Bs"]
     geo, col = I["geo"], (I["col"] if with_color else [])
     p, cg, cc = I["p"], I["cg"], I["cc"]
@@ -139,13 +166,18 @@ def test_trunks_kernels_match_plain(cuda, with_color, need_dp):
             mcfg.skip, with_color)
     before = dict(_cuda.LAUNCHES)
     occ, rgb, dp, dcg, dcc, dcol = chip_smoke.trunks_via_wrapper(
-        I, with_color, need_dp)
+        I, with_color, need_dp, need_wgrads)
     # through the autograd wrapper: one launch of each kernel
     assert _cuda.LAUNCHES["trunks_fwd"] == before.get("trunks_fwd", 0) + 1
     assert _cuda.LAUNCHES["trunks_bwd"] == before.get("trunks_bwd", 0) + 1
+    again = chip_smoke.trunks_via_wrapper(I, with_color, need_dp,
+                                          need_wgrads)
+    for a, b in zip((occ, rgb, dp, dcg, dcc, *dcol),
+                    (*again[:5], *again[5])):
+        assert (a is None and b is None) or torch.equal(a, b)
     occ0, rgb0 = FM.fused_trunks_plain(*args)
     dp0, dcg0, dcc0, dcol0 = FM.fused_trunks_plain_bwd(
-        *args[:6], g_occ, g_rgb, *args[6:], need_dp, with_color)
+        *args[:6], g_occ, g_rgb, *args[6:], need_dp, need_wgrads)
     torch.cuda.synchronize()
     _values_close(occ, occ0, "occ")
     _close_rel(dcg, dcg0, "dcg")
@@ -156,11 +188,14 @@ def test_trunks_kernels_match_plain(cuda, with_color, need_dp):
     if with_color:
         _values_close(rgb, rgb0, "rgb")
         _close_rel(dcc, dcc0, "dcc")
+    if need_wgrads:
         for i, (a, b) in enumerate(zip(dcol, dcol0)):
             _close_rel(a, b, f"dcol[{i}]")
+    else:
+        assert all(a is None for a in dcol)
     # the bare launcher counts no launch
     FM.launch_trunks(*args, backward=False)
-    assert _cuda.LAUNCHES["trunks_fwd"] == before.get("trunks_fwd", 0) + 1
+    assert _cuda.LAUNCHES["trunks_fwd"] == before.get("trunks_fwd", 0) + 2
 
 
 @pytest.mark.gpu
