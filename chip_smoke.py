@@ -17,11 +17,15 @@ Phases, each printed as one JSON line when it starts and when it ends:
   trunks   fused-trunk kernel pair through its autograd wrapper against
            fused_trunks_plain(_bwd) at the fused-trunk mapping path's shape
            (4000 rays x 5 samples): colour, geometry only, with the
-           position cotangent, a ragged n (20003 samples) and without the
-           weight gradients; each twice, bitwise; kernel / plain times
+           position cotangent, a ragged n (20003 samples) with colour and
+           geometry only, and without the weight gradients; each twice,
+           bitwise; kernel / plain times (#4 geometry only beside colour);
+           blocks per SM of the tile kernels
   trackloss  fused tracker-render kernel pair against trackloss_plain
            (autograd) at the tracker's 2000 rays: sigmoid tail, exposure
-           affine, exp weighting; kernel / plain times
+           affine, exp weighting, and a ragged 2001 rays; #9 twice,
+           bitwise; kernel / plain times, #9's device time per pass (under
+           torch.profiler) and blocks per SM of its tile passes
   composite  fused-composite kernel #6 through its autograd wrapper
            (nicer_fused_composite) against composite_plain under autograd,
            and kernel #7 (fused_comp_bwd) against the composition it
@@ -56,6 +60,7 @@ import argparse
 import contextlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -147,6 +152,33 @@ def nvidia_smi() -> str:
 
 # ---------------------------------------------------------------------------
 
+def ptxas_kernels(log: str) -> dict:
+    """{kernel: {"registers", "spill_bytes", "stack_bytes", "smem_bytes"}}
+    from the -Xptxas -v output of one source (smem: static shared memory;
+    the tile kernels take theirs dynamically)."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?_Z(\d+)(\w+)", ln)
+        if m:
+            name = m.group(2)[:int(m.group(1))]
+            out.setdefault(name, {})
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            out[name]["stack_bytes"] = int(m.group(1))
+            out[name]["spill_bytes"] = int(m.group(2)) + int(m.group(3))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", ln)
+            out[name]["smem_bytes"] = int(sm.group(1)) if sm else 0
+    return out
+
+
 def run_build(out_dir: str) -> dict:
     from hpslam_tpu_torch import _cuda
     d = _cuda.build_dir()
@@ -157,11 +189,15 @@ def run_build(out_dir: str) -> dict:
     with open(os.path.join(out_dir, "ptxas.txt"), "w") as f:
         for name, log in logs.items():
             f.write(f"== {name}\n{log}\n")
-    spills = [ln.strip() for log in logs.values() for ln in log.splitlines()
-              if "spill" in ln and not ln.strip().startswith("0 bytes")]
+    kernels = {k: v for log in logs.values()
+               for k, v in ptxas_kernels(log).items()}
     for name in logs:
         _cuda.lib(name)
-    return {"built": sorted(logs), "spill_lines": spills[:12]}
+    return {"built": sorted(logs),
+            "spilling_kernels": sorted(k for k, v in kernels.items()
+                                       if v.get("spill_bytes")),
+            "tile_kernels": {k: v for k, v in sorted(kernels.items())
+                             if "tiles" in k}}
 
 
 def topk_cases(torch, dev):
@@ -549,9 +585,13 @@ def run_trunks(results: dict) -> dict:
     gradients (the mapping path's colour stages), geometry only (its
     geometry stages), colour with the position cotangent (need_dp, the
     bundle-adjustment form), a ragged n (20003 samples, not a multiple of
-    the 64-sample tile) and colour without the weight gradients.  Two runs
-    of the wrapper must agree bit for bit.  The bare launcher is timed."""
+    the 64-sample tile) with colour and geometry only, and colour without
+    the weight gradients.  Two runs of the wrapper must agree bit for bit.
+    The bare launcher is timed (and #4's device time, without the host's
+    launch overhead), and the occupancy calculator's blocks per SM of the
+    tile kernels reported."""
     import torch
+    from hpslam_tpu_torch import _cuda
     from hpslam_tpu_torch.ops import fused_mlp as FM
     dev = torch.device("cuda")
     inputs = {n: trunks_inputs(torch, dev, n=n) for n in (20000, 20003)}
@@ -560,7 +600,8 @@ def run_trunks(results: dict) -> dict:
     for with_color, need_dp, n, wg in (
             (True, False, 20000, True), (False, False, 20000, False),
             (True, True, 20000, True), (True, False, 20003, True),
-            (False, True, 20003, False), (True, False, 20000, False)):
+            (False, True, 20003, False), (False, False, 20003, False),
+            (True, False, 20000, False)):
         I = inputs[n]
         mcfg = I["mcfg"]
         col = I["col"] if with_color else []
@@ -572,7 +613,7 @@ def run_trunks(results: dict) -> dict:
         first = (occ, rgb, dp, dcg, dcc, *dcol)
         if not all((a is None and b is None) or torch.equal(a, b)
                    for a, b in zip(first, (*again[:5], *again[5]))):
-            raise AssertionError(f"trunks: kernel 5 does not repeat "
+            raise AssertionError(f"trunks: kernels 4-5 do not repeat "
                                  f"bitwise (n={n})")
         occ0, rgb0 = FM.fused_trunks_plain(*args)
         bwd0 = FM.fused_trunks_plain_bwd(*args[:6], I["g_occ"], I["g_rgb"],
@@ -617,23 +658,64 @@ def run_trunks(results: dict) -> dict:
                 "bound_by": b_b[1], "bitwise_repeat": True,
                 "rel_fro_max": max(stats.values()),
                 "worst": max(stats, key=stats.get)}
+        if not need_dp and n == 20000 and wg == with_color:
+            case["fwd_device_ms"] = kernel_ms(
+                lambda: FM.launch_trunks(*args, backward=False))
         cases.append(case)
         if with_color and not need_dp and n == 20000 and wg:
             main = (case, b_f, b_b)
+        if not with_color and not need_dp and n == 20000:
+            geo = (case, b_f)
     case, b_f, b_b = main
     results["trunks_fwd"] = {
         "max_abs_err": worst["fwd"], "ms": case["fwd_ms"],
         "plain_ms": case["fwd_plain_ms"], "bound_ms": b_f[0],
         "bound_by": b_f[1], "tc_bound_ms": b_f[2],
-        "library_ms": None}
+        "library_ms": None, "geo_only_ms": geo[0]["fwd_ms"],
+        "geo_only_plain_ms": geo[0]["fwd_plain_ms"],
+        "geo_only_bound_ms": geo[1][0], "geo_only_tc_bound_ms": geo[1][2]}
     results["trunks_bwd"] = {
         "max_abs_err": worst["bwd"], "ms": case["bwd_ms"],
         "plain_ms": case["bwd_plain_ms"], "bound_ms": b_b[0],
         "bound_by": b_b[1], "tc_bound_ms": b_b[2],
         "library_ms": None}
+    widths = tile_widths(inputs[20000])
+    lib = _cuda.lib("trunks")
+    occupancy = {
+        f"{k} {w}": lib.hp_trunks_blocks_per_sm(*widths, int(w == "colour"),
+                                                int(k == "bwd"))
+        for k in ("fwd", "bwd") for w in ("colour", "geometry")}
     return {"tolerance": {"grad_rel_fro": GRAD_REL_FRO,
                           "grad_elem": [GRAD_ELEM_TOL, GRAD_ELEM_FRAC]},
-            "cases": cases}
+            "blocks_per_sm": occupancy, "cases": cases}
+
+
+def tile_widths(I):
+    """(C, emb_g, hid_g, emb_c, hid_c) of a case's model."""
+    return (I["mcfg"].c_dim, I["Bs"][0].shape[1], I["geo"][0].shape[1],
+            2 * I["Bs"][1].shape[1], I["col"][0].shape[1])
+
+
+def kernel_ms(fn, iters: int = 10) -> dict:
+    """Device time per call (ms) of each kernel that ``fn`` launches, from
+    torch.profiler over ``iters`` calls after one warm-up call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        if us and us > 0:
+            name = ev.key.split("(")[0]
+            out[name] = out.get(name, 0.0) + us / 1e3 / iters
+    return out
 
 
 def trackloss_work(mcfg, n, S, K, backward, geo_numel, col_numel):
@@ -748,17 +830,24 @@ def check_drays(I, static, k, p):
 def run_trackloss(results: dict) -> dict:
     """Kernels #8-9 under autograd (the wrapper) against trackloss_plain
     differentiated by autograd: the SLAM run's sigmoid tail with distance
-    weights, the exposure affine, and exp weighting."""
+    weights, the exposure affine, exp weighting, and a ragged 2001 rays
+    (10005 samples, not a multiple of #9's 64-sample tile).  Two runs of
+    the wrapper must agree bit for bit.  The bare launcher is timed, #9's
+    device time split by pass, and the occupancy calculator's blocks per
+    SM of its tile passes reported."""
     import torch
+    from hpslam_tpu_torch import _cuda
     from hpslam_tpu_torch.ops import fused_mlp as FM
     dev = torch.device("cuda")
-    I = trackloss_inputs(torch, dev)
-    mcfg, S, K = I["mcfg"], I["S"], I["K"]
-    C = mcfg.c_dim
+    inputs = {n: trackloss_inputs(torch, dev, n=n) for n in (2000, 2001)}
     cases = []
     worst = {"fwd": 0.0, "bwd": 0.0}
     main = None
-    for use_aff, wmode in ((False, 0), (True, 0), (False, 1)):
+    for use_aff, wmode, n in ((False, 0, 2000), (True, 0, 2000),
+                              (False, 1, 2000), (False, 0, 2001)):
+        I = inputs[n]
+        mcfg, S, K = I["mcfg"], I["S"], I["K"]
+        C = mcfg.c_dim
         static = (mcfg.n_blocks, mcfg.skip, S, K, C, 0.1, wmode, use_aff,
                   not use_aff)
         consts = (I["rowc"], I["cfeat"], I["geo"], I["col"], I["Bs"])
@@ -772,8 +861,12 @@ def run_trackloss(results: dict) -> dict:
             return [d.detach(), v.detach(), c.detach(), r.grad,
                     a.grad if a.grad is not None else torch.zeros_like(a)]
 
-        k, p = run(FM.nicer_fused_trackloss), run(FM.trackloss_plain)
+        k, again = run(FM.nicer_fused_trackloss), run(FM.nicer_fused_trackloss)
+        p = run(FM.trackloss_plain)
         torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(k, again)):
+            raise AssertionError(f"trackloss: kernels 8-9 do not repeat "
+                                 f"bitwise (n={n})")
         stats = {}
         names = ["depth", "var", "color", "drays", "daff"]
         for name, a, b in zip(names, k, p):
@@ -794,11 +887,14 @@ def run_trackloss(results: dict) -> dict:
             stats[name] = fro
         kw = dict(zip(("n_blocks", "skip", "S", "K", "C", "coef", "wmode",
                        "use_affine", "sigmoid_plain"), static))
+
+        def kernel9():
+            return FM.launch_trackloss(
+                I["rays"], I["aff"], *consts, backward=True,
+                g_depth=I["g_depth"], g_color=I["g_color"], **kw)
         t_f = cuda_time_ms(lambda: FM.launch_trackloss(
             I["rays"], I["aff"], *consts, backward=False, **kw))
-        t_b = cuda_time_ms(lambda: FM.launch_trackloss(
-            I["rays"], I["aff"], *consts, backward=True,
-            g_depth=I["g_depth"], g_color=I["g_color"], **kw))
+        t_b = cuda_time_ms(kernel9)
 
         def plain_fwd():
             with torch.no_grad():
@@ -808,18 +904,22 @@ def run_trackloss(results: dict) -> dict:
         tp_b = cuda_time_ms(lambda: run(FM.trackloss_plain), iters=5)
         numel = [sum(t.numel() for t in I["geo"]) + I["Bs"][0].numel(),
                  sum(t.numel() for t in I["col"]) + I["Bs"][1].numel()]
-        n = I["rays"].shape[0]
         b_f = bound_ms(*trackloss_work(mcfg, n, S, K, False, *numel))
         b_b = bound_ms(*trackloss_work(mcfg, n, S, K, True, *numel))
         case = {"affine": use_aff, "wmode": wmode, "n": n, "fwd_ms": t_f,
                 "fwd_plain_ms": tp_f, "fwd_bound_ms": b_f[0], "bwd_ms": t_b,
                 "bwd_plain_ms": tp_b, "bwd_bound_ms": b_b[0],
-                "bound_by": b_b[1], "drays_vs_float64": stats.pop(
-                    "drays_f64"), "rel_fro_max": max(stats.values())}
-        cases.append(case)
+                "bound_by": b_b[1], "bitwise_repeat": True,
+                "drays_vs_float64": stats.pop("drays_f64"),
+                "rel_fro_max": max(stats.values())}
         if main is None:
+            case["bwd_pass_ms"] = {
+                k_: v for k_, v in kernel_ms(kernel9).items()
+                if k_.startswith("tl_")}
             main = (case, b_f, b_b)
+        cases.append(case)
     case, b_f, b_b = main
+    passes = case["bwd_pass_ms"]
     results["trackloss_fwd"] = {
         "max_abs_err": worst["fwd"], "ms": case["fwd_ms"],
         "plain_ms": case["fwd_plain_ms"], "bound_ms": b_f[0],
@@ -829,11 +929,18 @@ def run_trackloss(results: dict) -> dict:
         "max_abs_err": worst["bwd"], "ms": case["bwd_ms"],
         "plain_ms": case["bwd_plain_ms"], "bound_ms": b_b[0],
         "bound_by": b_b[1], "tc_bound_ms": b_b[2],
-        "library_ms": None}
+        "library_ms": None, "pass_ms": passes,
+        "without_recompute_ms": passes.get("tl_bwd_tiles", 0.0)
+        + passes.get("tl_drays", 0.0)}
+    I = inputs[2000]
+    C, emb_g, hid_g, emb_c, hid_c = tile_widths(I)
+    lib = _cuda.lib("trackloss")
+    occupancy = {f"pass {k}": lib.hp_trackloss_blocks_per_sm(
+        C, I["K"], emb_g, hid_g, emb_c, hid_c, k) for k in (1, 3)}
     return {"tolerance": {"grad_rel_fro": GRAD_REL_FRO,
                           "grad_elem": [GRAD_ELEM_TOL, GRAD_ELEM_FRAC],
                           "drays_vs_float64": COND_FACTOR},
-            "cases": cases}
+            "blocks_per_sm": occupancy, "cases": cases}
 
 
 # flops per sample of the occupancy compositor, counted from comp_fwd
@@ -1064,7 +1171,7 @@ def run_scatter_repeat() -> dict:
 # kernel-name fragments of the device-time groups that --profile reports
 PROFILE_GROUPS = [
     ("maploss kernels", ("ml_", "loss_reduce")),
-    ("trunks kernels", ("tr_samples", "tr_bwd_tiles")),
+    ("trunks kernels", ("tr_fwd_tiles", "tr_bwd_tiles")),
     ("composite kernels", ("cp_",)),
     ("trackloss kernels", ("tl_",)),
     ("weight-gradient passes", ("wgrad_", "wg_tc_")),

@@ -45,7 +45,8 @@ SIGNATURES = {
           _P], _I),
     ],
     "trunks": [
-        ("hp_trunks_scratch_floats", [_I] * 8, _L),
+        ("hp_trunks_scratch_floats", [_I] * 9, _L),
+        ("hp_trunks_blocks_per_sm", [_I] * 7, _I),
         ("hp_trunks",
          [_P, _P, _P, _P, _P, _P, _P,            # p cg cc Bg Bc gw cw
           _I, _I, _I, _I, _I, _I, _I, _I,        # n C emb/hid nb skip
@@ -55,6 +56,7 @@ SIGNATURES = {
     ],
     "trackloss": [
         ("hp_trackloss_scratch_floats", [_I] * 9, _L),
+        ("hp_trackloss_blocks_per_sm", [_I] * 7, _I),
         ("hp_trackloss",
          [_P, _P, _I, _P, _P, _P, _P, _P, _P,    # rays rowc Dr .. gw cw
           _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,  # n S K C emb/hid nb skip

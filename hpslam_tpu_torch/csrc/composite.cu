@@ -157,10 +157,10 @@ __global__ void cp_bwd_samples(Core gw, Core cw, Rows rg, Rows rc,
   const long m = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (m >= M) return;
   const int C = sh.C;
-  trunk_bwd(gw, rg, 0, m, M, false);
+  trunk_bwd(gw, rg, 0, m, M);
   for (int ch = 0; ch < C; ++ch) dcg[m * C + ch] = rg.DC[(long)ch * M + m];
   if (sh.with_color) {
-    trunk_bwd(cw, rc, 1, m, M, false);
+    trunk_bwd(cw, rc, 1, m, M);
     for (int ch = 0; ch < C; ++ch)
       dcc[m * C + ch] = rc.DC[(long)ch * M + m];
   } else {

@@ -272,16 +272,6 @@ __global__ void __launch_bounds__(TC_THREADS)
   tc_trunk_fwd(cw, rc, 1, T, embp_c, m0, M, wgrads != 0, true);
 }
 
-// Gs (TC_TM x 8, zero beyond nout) from nout rows of a table.
-__device__ void tile_rows_to_g(const float* G, int nout, float* Gs, long m0,
-                               long M) {
-  for (int e = threadIdx.x; e < TC_TM * 8; e += blockDim.x) {
-    const int c = e / TC_TM, r = e % TC_TM;
-    Gs[r * TC_GLD + c] =
-        (c < nout && m0 + r < M) ? G[(long)c * M + m0 + r] : 0.0f;
-  }
-}
-
 // Pass 3 of kernel #3: both trunk backwards on a tile, from the output
 // cotangents pass 2 left in the G rows; d(c) to the DC rows.
 __global__ void __launch_bounds__(TC_THREADS)

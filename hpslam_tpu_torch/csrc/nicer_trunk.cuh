@@ -1,5 +1,9 @@
 // NICER decoder trunks, one sample per thread, shared by the port's
-// kernels (maploss.cu, trunks.cu, trackloss.cu).
+// kernels that have not moved onto the tensor-core tiles of
+// nicer_trunk_tc.cuh: the mapping-loss forward of maploss.cu (kernel #2),
+// the composite pair of composite.cu (#6, #7) and the tracker-loss forward
+// of trackloss.cu (#8).  The structs, activations and Fourier projection
+// here are shared by the tile code too.
 //
 // Device code for the two trunks of hpslam_tpu/ops/fused_mlp.py
 // (`_trunk_fwd_block` :140, `_trunk_bwd_block` :169, `_embed_geo` /
@@ -48,19 +52,17 @@ struct Rows {
   float* DH;   // nb*hid rows: cotangents of the block outputs
   float* G;    // nout rows: trunk output, then its cotangent
   float* DC;   // cdim rows: cotangent of the feature
-  float* DE;   // de rows (emb or 0): cotangent of the embedding
 };
 
-// Rows of one trunk's block; de = emb when the embedding cotangent is
-// wanted, else 0.
+// Rows of one trunk's block.
 __host__ __device__ inline long trunk_rows(int emb, int hid, int cdim,
-                                           int nb, int nout, int de = 0) {
-  return (long)emb + cdim + 3L * nb * hid + nout + cdim + de;
+                                           int nb, int nout) {
+  return (long)emb + cdim + 3L * nb * hid + nout + cdim;
 }
 
 __host__ __device__ inline Rows make_rows(float* base, long M, int emb,
                                           int hid, int cdim, int nb,
-                                          int nout, int de = 0) {
+                                          int nout) {
   Rows r;
   r.E = base;
   r.Cf = r.E + (long)emb * M;
@@ -69,7 +71,6 @@ __host__ __device__ inline Rows make_rows(float* base, long M, int emb,
   r.DH = r.H + (long)nb * hid * M;
   r.G = r.DH + (long)nb * hid * M;
   r.DC = r.G + (long)nout * M;
-  r.DE = de ? r.DC + (long)cdim * M : nullptr;
   return r;
 }
 
@@ -115,24 +116,6 @@ __device__ void embed_fwd(const float p[3], const float* B, bool with_cos,
     const float pr = fourier_proj(tp, B, nk, k);
     r.E[(long)k * M + m] = sinf(pr);
     if (with_cos) r.E[(long)(nk + k) * M + m] = cosf(pr);
-  }
-}
-
-// dp += (dproj . B^T), with dproj = cos(proj) d_sin (- sin(proj) d_cos),
-// from the DE rows of sample m; the caller scales by 2 pi.
-__device__ void embed_bwd(const float p[3], const float* B, bool with_cos,
-                          const Rows& r, int emb, long m, long M,
-                          float dp[3]) {
-  const float tp[3] = {p[0] * 6.2831855f, p[1] * 6.2831855f,
-                       p[2] * 6.2831855f};
-  const int nk = with_cos ? emb / 2 : emb;
-  for (int k = 0; k < nk; ++k) {
-    const float pr = fourier_proj(tp, B, nk, k);
-    float dpr = cosf(pr) * r.DE[(long)k * M + m];
-    if (with_cos) dpr -= sinf(pr) * r.DE[(long)(nk + k) * M + m];
-    dp[0] = fmaf(dpr, B[k], dp[0]);
-    dp[1] = fmaf(dpr, B[nk + k], dp[1]);
-    dp[2] = fmaf(dpr, B[2 * nk + k], dp[2]);
   }
 }
 
@@ -233,20 +216,13 @@ __device__ void trunk_fwd(const Core& w, const Rows& r, int code, long m,
 }
 
 // Trunk backward for sample m: G rows hold the output cotangent.  Leaves
-// dL/dc in DC, dL/dh_i in DH and dL/da_i in place of the pre-activations;
-// with need_de also dL/de in DE: the skip concat's embedding part first,
-// then the first block's input, the reference's order.
+// dL/dc in DC, dL/dh_i in DH and dL/da_i in place of the pre-activations.
 __device__ void trunk_bwd(const Core& w, const Rows& r, int code, long m,
-                          long M, bool need_de) {
+                          long M) {
   const int L = w.nb - 1;
   const int t0 = (w.skip == L) ? w.emb : 0;
   dense_bwd(r.G, w.nout, w.Wout, t0, t0 + w.hid, r.DH + (long)L * w.hid * M,
             false, m, M);
-  if (need_de) {
-    for (int k = 0; k < w.emb; ++k) r.DE[(long)k * M + m] = 0.0f;
-    if (w.skip == L)
-      dense_bwd(r.G, w.nout, w.Wout, 0, w.emb, r.DE, true, m, M);
-  }
   for (int c = 0; c < w.cdim; ++c) r.DC[(long)c * M + m] = 0.0f;
   for (int i = L; i >= 0; --i) {
     float* Ai = r.A + (long)i * w.hid * M;
@@ -260,10 +236,6 @@ __device__ void trunk_bwd(const Core& w, const Rows& r, int code, long m,
       const int s0 = (i == w.skip + 1) ? w.emb : 0;
       dense_bwd(Ai, w.hid, w.W[i], s0, s0 + w.hid,
                 r.DH + (long)(i - 1) * w.hid * M, false, m, M);
-      if (need_de && s0 > 0)
-        dense_bwd(Ai, w.hid, w.W[i], 0, w.emb, r.DE, true, m, M);
-    } else if (need_de) {
-      dense_bwd(Ai, w.hid, w.W[0], 0, w.emb, r.DE, true, m, M);
     }
   }
 }

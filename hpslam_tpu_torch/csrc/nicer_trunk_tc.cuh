@@ -1,6 +1,7 @@
 // NICER decoder trunks on Hopper's tensor cores, a tile of samples per
-// block, shared by the trunk backward of maploss.cu (kernel #3) and
-// trunks.cu (kernel #5).
+// block, shared by the mapping-loss backward of maploss.cu (kernel #3), the
+// trunk pair of trunks.cu (kernels #4 and #5) and the tracker-loss backward
+// of trackloss.cu (kernel #9).
 //
 // Device code for the two trunks of hpslam_tpu/ops/fused_mlp.py
 // (`_trunk_fwd_block` :142, `_trunk_bwd_block` :170): the ReLU geometry
@@ -30,8 +31,10 @@
 //   * Only what a later pass reads goes to global memory, coalesced, in
 //     the scratch rows of nicer_trunk.cuh (row t of a quantity holds its
 //     t-th component for every sample): the pre-activations (read back
-//     for the activation's derivative), and for the weight gradients the
-//     layer inputs, dA_i, dH_i and the output cotangent.
+//     for the activation's derivative), the trunk output, and for the
+//     weight gradients the layer inputs, dA_i, dH_i and the output
+//     cotangent.  A forward that nothing reads back (kernel #4) stores no
+//     row at all.
 //   * Weight gradients X^T dY over the M samples are one launch for every
 //     weight of the core: 64 x 64 output tiles on the same 3xTF32 mma, the
 //     samples split into fixed ranges that depend on the shape only, the
@@ -281,7 +284,8 @@ __device__ void tile_embed(const float* P, const float* B, bool with_cos,
 }
 
 // dp(r) += (dproj . B^T) for the tile's samples r (threads r < TC_TM), from
-// the embedding cotangent DEs; the scalar embed_bwd's order.
+// the embedding cotangent DEs, with dproj = cos(proj) d_sin (- sin(proj)
+// d_cos); the caller scales by 2 pi.
 __device__ void tile_embed_bwd(const float* P, const float* B, bool with_cos,
                                int emb, int embp, const float* DEs,
                                float dp[3]) {
@@ -307,6 +311,16 @@ __device__ void tile_to_rows(const float* S, int ld, int n, float* G,
   for (int e = threadIdx.x; e < TC_TM * n; e += blockDim.x) {
     const int c = e / TC_TM, r = e % TC_TM;
     if (m0 + r < M) G[(long)c * M + m0 + r] = S[r * ld + c];
+  }
+}
+
+// Gs (TC_TM x 8, zero beyond nout) from nout rows of a table.
+__device__ void tile_rows_to_g(const float* G, int nout, float* Gs, long m0,
+                               long M) {
+  for (int e = threadIdx.x; e < TC_TM * 8; e += blockDim.x) {
+    const int c = e / TC_TM, r = e % TC_TM;
+    Gs[r * TC_GLD + c] =
+        (c < nout && m0 + r < M) ? G[(long)c * M + m0 + r] : 0.0f;
   }
 }
 
@@ -349,9 +363,9 @@ __device__ void stage_layer(const Core& w, const TcTile& T, int i,
 
 // Forward of one trunk on the tile.  Es (embedding, zero-padded to embp)
 // and Cs (feature) hold the tile's inputs.  Writes the pre-activations to
-// the A rows; with save_h the block outputs to the H rows; with out the
-// output to the G rows and to Gs.  Returns the buffer index of the last
-// hidden state.
+// the A rows (if rw.A); with save_h the block outputs to the H rows; with
+// out the output to Gs and (if rw.G) to the G rows.  Returns the buffer
+// index of the last hidden state.
 __device__ int tc_trunk_fwd(const Core& w, const Rows& rw, int code,
                             const TcTile& T, int embp, long m0, long M,
                             bool save_h, bool out) {
@@ -377,11 +391,11 @@ __device__ int tc_trunk_fwd(const Core& w, const Rows& rw, int code,
                        store_a);
     __syncthreads();
     // pre-activations to the A rows; act(a) in place
-    float* Ag = rw.A + (long)i * hid * M;
+    float* Ag = rw.A ? rw.A + (long)i * hid * M : nullptr;
     for (int e = threadIdx.x; e < TC_TM * hid; e += blockDim.x) {
       const int c = e / TC_TM, r = e % TC_TM;
       const float a = Ho[r * ldh + c];
-      if (m0 + r < M) Ag[(long)c * M + m0 + r] = a;
+      if (Ag && m0 + r < M) Ag[(long)c * M + m0 + r] = a;
       Ho[r * ldh + c] = act_f(code, a);
     }
     __syncthreads();
@@ -408,7 +422,7 @@ __device__ int tc_trunk_fwd(const Core& w, const Rows& rw, int code,
   else
     tile_gemm<false>(nullptr, 0, 0, T.H[cur], ldh, hid, T.Ws, 8, 8, store_g);
   __syncthreads();
-  tile_to_rows(T.Gs, TC_GLD, nout, rw.G, m0, M);
+  if (rw.G) tile_to_rows(T.Gs, TC_GLD, nout, rw.G, m0, M);
   return cur;
 }
 

@@ -17,11 +17,13 @@ CUDA tensors, launches its kernel or raises.
   autograd.
 * ``nicer_fused_color`` / ``nicer_fused_geo`` (reference :611, :653): the
   two decoder trunks, kernels #4 and #5 (``csrc/trunks.cu``), forward and
-  remat backward, the backward on the tensor cores as #3's.  Plain
-  versions: ``fused_trunks_plain`` and ``fused_trunks_plain_bwd``.
+  remat backward, both on the tensor cores as #3's.  Plain versions:
+  ``fused_trunks_plain`` and ``fused_trunks_plain_bwd``.
 * ``nicer_fused_trackloss`` (reference :1829): the tracker's
-  pose-differentiable render, kernels #8 and #9 (``csrc/trackloss.cu``).
-  Plain version: ``trackloss_plain``, differentiated by autograd.
+  pose-differentiable render, kernels #8 and #9 (``csrc/trackloss.cu``);
+  #9's forward recompute and trunk backwards run on the tensor cores, #8
+  still on the scalar trunk code.  Plain version: ``trackloss_plain``,
+  differentiated by autograd.
 * ``nicer_fused_composite`` (reference :825): both trunks and the
   occupancy compositor per ray, kernel #6 (``csrc/composite.cu``) forward;
   its backward is the reference's ``_ncomp_bwd``: the compositor backward
@@ -404,12 +406,12 @@ def launch_trunks(p, c_geo, c_col, Bs, geo_flat, col_flat, n_blocks, skip,
     emb_c = 2 * Bc.shape[1] if with_color else emb_g
     need_dp = bool(backward and need_dp)
     wgrads = bool(backward and with_color and need_wgrads)
-    if backward:
-        _check_tc_widths("trunks", hid_g, hid_c, C)
+    _check_tc_widths("trunks", hid_g, hid_c, C)
     lib = _cuda.lib("trunks")
     stream = torch.cuda.current_stream(dev).cuda_stream
     n_scr = lib.hp_trunks_scratch_floats(n, C, emb_g, hid_g, emb_c, hid_c,
-                                         n_blocks, int(with_color))
+                                         n_blocks, int(with_color),
+                                         int(backward))
     scratch = torch.empty((n_scr,), dtype=torch.float32, device=dev)
     occ = rgb = dp = dcg = dcc = wpart = None
     dcol = []
@@ -621,10 +623,12 @@ def launch_trackloss(rays, aff, rowc, cfeat, geo_flat, col_flat, Bs,
     Bg, Bc = Bs
     n, Dr = rowc.shape
     dev = rays.device
-    lib = _cuda.lib("trackloss")
-    stream = torch.cuda.current_stream(dev).cuda_stream
     hid_g, hid_c = geo_flat[0].shape[1], col_flat[0].shape[1]
     emb_g, emb_c = Bg.shape[1], 2 * Bc.shape[1]
+    if backward:
+        _check_tc_widths("trackloss", hid_g, hid_c, C)
+    lib = _cuda.lib("trackloss")
+    stream = torch.cuda.current_stream(dev).cuda_stream
     n_scr = lib.hp_trackloss_scratch_floats(n, S, C, emb_g, hid_g, emb_c,
                                             hid_c, n_blocks, int(backward))
     scratch = torch.empty((n_scr,), dtype=torch.float32, device=dev)

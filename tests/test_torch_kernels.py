@@ -148,15 +148,16 @@ def _values_close(a, b, name):
 @pytest.mark.parametrize("with_color,need_dp,n,need_wgrads", [
     (True, False, 3000, True), (True, True, 3000, True),
     (False, True, 3000, False), (True, False, 20003, True),
-    (True, False, 3000, False)])
+    (False, False, 20003, False), (True, False, 3000, False)])
 def test_trunks_kernels_match_plain(cuda, with_color, need_dp, n,
                                     need_wgrads):
     """Kernels #4 (forward) and #5 (backward) through their autograd
     wrapper (nicer_fused_color / nicer_fused_geo) against fused_trunks_plain
     and fused_trunks_plain_bwd at the full model width (chip_smoke.py's
     inputs): colour, with the position cotangent, geometry only, a ragged n
-    (20003 samples: not a multiple of the 64-sample tile) and colour
-    without the weight gradients.  Two runs agree bit for bit."""
+    (20003 samples: not a multiple of the 64-sample tile) with colour and
+    geometry only, and colour without the weight gradients.  Two runs
+    agree bit for bit, and so does the bare forward launcher."""
     import chip_smoke
     I = chip_smoke.trunks_inputs(torch, cuda, n=n)
     mcfg, g_occ, g_rgb, Bs = I["mcfg"], I["g_occ"], I["g_rgb"], I["Bs"]
@@ -193,20 +194,25 @@ def test_trunks_kernels_match_plain(cuda, with_color, need_dp, n,
             _close_rel(a, b, f"dcol[{i}]")
     else:
         assert all(a is None for a in dcol)
-    # the bare launcher counts no launch
-    FM.launch_trunks(*args, backward=False)
+    # the bare launcher counts no launch, and repeats the wrapper's bits
+    occ3, rgb3 = FM.launch_trunks(*args, backward=False)
     assert _cuda.LAUNCHES["trunks_fwd"] == before.get("trunks_fwd", 0) + 2
+    assert torch.equal(occ3, occ)
+    assert torch.equal(rgb3, rgb) if with_color else not rgb3.any()
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("use_affine,wmode", [(False, 0), (True, 0),
-                                              (False, 1)])
-def test_trackloss_kernels_match_plain(cuda, use_affine, wmode):
+@pytest.mark.parametrize("use_affine,wmode,n", [(False, 0, 500),
+                                                (True, 0, 500),
+                                                (False, 1, 500),
+                                                (False, 0, 501)])
+def test_trackloss_kernels_match_plain(cuda, use_affine, wmode, n):
     """Kernels #8 (forward) and #9 (backward) under autograd against
     trackloss_plain differentiated by autograd, at the full model width
-    (chip_smoke.py's inputs, fewer rays)."""
+    (chip_smoke.py's inputs, fewer rays; 501 rays: 2505 samples, not a
+    multiple of #9's 64-sample tile).  Two runs of #9 agree bit for bit."""
     import chip_smoke
-    I = chip_smoke.trackloss_inputs(torch, cuda, n=500)
+    I = chip_smoke.trackloss_inputs(torch, cuda, n=n)
     mcfg, S, K = I["mcfg"], I["S"], I["K"]
     rays, aff, rowc, cfeat = I["rays"], I["aff"], I["rowc"], I["cfeat"]
     geo, col, Bs = I["geo"], I["col"], I["Bs"]
@@ -214,7 +220,9 @@ def test_trackloss_kernels_match_plain(cuda, use_affine, wmode):
     static = (mcfg.n_blocks, mcfg.skip, S, K, mcfg.c_dim, 0.1, wmode,
               use_affine, not use_affine)
     outs = []
-    for fn in (FM.nicer_fused_trackloss, FM.trackloss_plain):
+    before = _cuda.LAUNCHES["trackloss_bwd"]
+    for fn in (FM.nicer_fused_trackloss, FM.nicer_fused_trackloss,
+               FM.trackloss_plain):
         r = rays.clone().requires_grad_()
         a = aff.clone().requires_grad_()
         d, v, c = fn(r, a, rowc, cfeat, geo, col, Bs, *static)
@@ -222,7 +230,9 @@ def test_trackloss_kernels_match_plain(cuda, use_affine, wmode):
         outs.append((d.detach(), v.detach(), c.detach(), r.grad,
                      a.grad if a.grad is not None else torch.zeros_like(a)))
     torch.cuda.synchronize()
-    (dk, vk, ck, drk, dak), (dp_, vp, cp, drp, dap) = outs
+    assert _cuda.LAUNCHES["trackloss_bwd"] == before + 2
+    (dk, vk, ck, drk, dak), again, (dp_, vp, cp, drp, dap) = outs
+    assert all(torch.equal(x, y) for x, y in zip(outs[0], again))
     for name, x, y in (("depth", dk, dp_), ("var", vk, vp),
                        ("color", ck, cp)):
         _values_close(x, y, name)

@@ -1,8 +1,11 @@
-"""The 3xTF32 arithmetic of the tensor-core trunk kernels (#3 and #5,
-hpslam_tpu_torch/csrc/nicer_trunk_tc.cuh), emulated in plain PyTorch on the
-CPU, against the port's f32 plain trunk and the reference's
+"""The 3xTF32 arithmetic of the tensor-core trunk kernels (#3, #4, #5 and
+#9, hpslam_tpu_torch/csrc/nicer_trunk_tc.cuh), emulated in plain PyTorch on
+the CPU, against the port's f32 plain trunk and the reference's
 _trunk_fwd_block / _trunk_bwd_block (hpslam_tpu/ops/fused_mlp.py) at
-exact=True.
+exact=True; and the tracker-loss backward (#9) as a whole: both trunks
+through the emulated products, then the embedding and weight routes of
+d(point) and d(rays), held to chip_smoke.check_drays's rule against
+trackloss_plain in float64.
 
 The kernels take every trunk and weight-gradient product on TF32 tensor
 cores at f32 accuracy: each f32 operand x is split into hi = tf32(x) and
@@ -15,7 +18,9 @@ widths (embeddings 93 / 40, hidden 32 / 128, 5 blocks, skip 2, feature
 GRAD_REL_FRO (1e-4, relative Frobenius distance) of both f32 references;
 a single TF32 pass, shown in the failure message, does not.
 """
+import importlib.util
 import math
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -23,7 +28,8 @@ import pytest
 import torch
 
 from hpslam_tpu.ops import fused_mlp as jFM
-from hpslam_tpu_torch.models.decoder import fourier_features, softplus100
+from hpslam_tpu_torch.models.decoder import (fourier_features, fourier_proj,
+                                             softplus100)
 from hpslam_tpu_torch.ops import fused_mlp as tFM
 
 GRAD_REL_FRO = 1e-4
@@ -177,11 +183,12 @@ def test_3xtf32_trunk_matches_f32_references(trunk):
     assert worst1[0] > GRAD_REL_FRO, msg
 
 
-@pytest.mark.parametrize("kernel", ["maploss", "trunks"])
+@pytest.mark.parametrize("kernel", ["maploss", "trunks", "trunks_fwd",
+                                    "trackloss"])
 def test_tensor_core_kernels_reject_widths_off_the_mma_grid(kernel):
-    """Kernels #3 and #5 tile every width by the mma's 8: their launchers
-    refuse a hidden width that is not a multiple of 8 before building or
-    launching anything."""
+    """Kernels #3, #5, #4 and #9 tile every width by the mma's 8: their
+    launchers refuse a hidden width that is not a multiple of 8 before
+    building or launching anything."""
     n, C, nb = 4, 8, 2
     geo = [torch.zeros(s) for s in [(16, 12), (12,), (28, 12), (12,)]
            + [(C, 12), (12,)] * nb + [(12, 1), (1,)]]
@@ -197,8 +204,198 @@ def test_tensor_core_kernels_reject_widths_off_the_mma_grid(kernel):
                                torch.ones((n, 1)), geo, Bs, nb, 0, True, S,
                                u, C, 0.1, True, False, 0.1, backward=True,
                                need_wgrads=True)
-        else:
+        elif kernel == "trunks":
             tFM.launch_trunks(torch.zeros((n, 3)), torch.zeros((n, C)),
                               torch.zeros((n, C)), Bs, geo, col, nb, 0, True,
                               backward=True, g_occ=torch.zeros(n),
                               g_rgb=torch.zeros((n, 3)))
+        elif kernel == "trunks_fwd":
+            tFM.launch_trunks(torch.zeros((n, 3)), torch.zeros((n, C)),
+                              None, (Bs[0], None), geo, [], nb, 0, False,
+                              backward=False)
+        else:
+            S, K = 2, 2
+            tFM.launch_trackloss(
+                torch.zeros((n, 6)), torch.zeros((n, 12)),
+                torch.zeros((n, 2 * S + 6 + 3 * S * K)),
+                torch.zeros((n, S * K * 2 * C)), geo, col, Bs, nb, 0, S, K,
+                C, 0.1, 0, False, True, backward=True,
+                g_depth=torch.zeros(n), g_color=torch.zeros((n, 3)))
+
+
+# ---------------------------------------------------------------------------
+# Kernel #9 as a whole
+
+N_RAYS = 300
+
+
+def _chip_smoke():
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(root, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _track_inputs(seed=5, n=N_RAYS, S=5, K=8, C=32, nb=5, skip=2, r=0.3):
+    """The tracker's operating point as chip_smoke.trackloss_inputs builds
+    it (rays toward a wall at ~2 m, K cached neighbours 1e-2 to 1.2 r away,
+    one padded slot at 1e6, `has` from those distances), at the model's
+    full widths, made with numpy."""
+    rng = np.random.default_rng(seed)
+
+    def core(nk, hid, nout, scale, cos):
+        emb = 2 * nk if cos else nk
+        ins = [emb if i == 0 else (emb + hid if i == skip + 1 else hid)
+               for i in range(nb)]
+        flat = []
+        for k in ins:
+            flat += [rng.normal(size=(k, hid)) / math.sqrt(k),
+                     rng.normal(0.0, 0.05, hid)]
+        for _ in range(nb):
+            flat += [rng.normal(size=(C, hid)) / math.sqrt(C),
+                     rng.normal(0.0, 0.05, hid)]
+        flat += [rng.normal(size=(hid, nout)) / math.sqrt(hid),
+                 rng.normal(0.0, 0.05, nout)]
+        return flat, rng.normal(0.0, scale, (3, nk))
+
+    geo, Bg = core(93, 32, 1, 25.0, False)
+    col, Bc = core(20, 128, 3, 32.0, True)
+    ro = 0.05 * rng.normal(size=(n, 3))
+    rd = np.concatenate([rng.uniform(-0.5, 0.5, (n, 2)), -np.ones((n, 1))],
+                        1)
+    z = rng.uniform(1.8, 2.2, (n, 1)) * np.linspace(0.96, 1.04, S)
+    pts = ro[:, None] + z[..., None] * rd[:, None]
+    u = rng.normal(size=(n, S, K, 3))
+    u /= np.linalg.norm(u, axis=-1, keepdims=True)
+    cpos = pts[:, :, None] + u * rng.uniform(1e-2, 1.2 * r, (n, S, K, 1))
+    cpos[:, :, -1] = 1e6
+    has = (np.sum(np.sum((cpos - pts[:, :, None]) ** 2, -1) < r * r, -1)
+           >= 2).astype(np.float64)
+    rowc = np.concatenate([z, z[:, S // 2:S // 2 + 1], rng.uniform(size=(
+        n, 3)), np.full((n, 1), r * r), has, np.ones((n, 1)),
+        cpos.reshape(n, -1)], 1)
+    aff = np.concatenate([np.tile(np.eye(3).reshape(1, 9), (n, 1)),
+                          np.zeros((n, 3))], 1) \
+        + 0.05 * rng.normal(size=(n, 12))
+
+    def t(x):
+        return torch.tensor(np.asarray(x, np.float32))
+    return dict(rays=t(np.concatenate([ro, rd], 1)), aff=t(aff),
+                rowc=t(rowc), cfeat=t(0.1 * rng.normal(size=(n, S * K * 2 * C))),
+                g_depth=t(rng.normal(size=n)), g_color=t(rng.normal(
+                    size=(n, 3))), geo=[t(w) for w in geo],
+                col=[t(w) for w in col], Bs=(t(Bg), t(Bc)),
+                static=(nb, skip, S, K, C))
+
+
+def _tail(occ, raw, aff, has, z, coef, use_affine, sigmoid_plain):
+    """trackloss_plain's colour tail and compositor on (n, S) occ and
+    (n, S, 3) raw: (depth, color)."""
+    if use_affine:
+        a = aff[:, None, :]
+        rgb = torch.sigmoid(torch.stack([
+            raw[..., 0] * a[..., d] + raw[..., 1] * a[..., 3 + d]
+            + raw[..., 2] * a[..., 6 + d] + a[..., 9 + d]
+            for d in range(3)], -1))
+    else:
+        rgb = torch.sigmoid(raw) if sigmoid_plain else raw
+    alpha = torch.sigmoid(coef * torch.where(has, occ, -100.0))
+    ts, t_run = [], torch.ones_like(alpha[:, 0])
+    for s in range(z.shape[1]):
+        ts.append(t_run)
+        t_run = t_run * ((1.0 - alpha[:, s]) + 1e-10)
+    wc = alpha * torch.stack(ts, 1)
+    wsum = torch.sum(wc, 1) + 1e-10
+    return (torch.sum(wc * z, 1) / wsum,
+            torch.sum(wc[..., None] * rgb, 1) / wsum[:, None])
+
+
+def emulated_trackloss_drays(I, static, mm):
+    """d rays of kernel #9 with both trunks' products through ``mm``: the
+    forward recomputed, the compositor and tail backward (scalar f32 in the
+    kernel), both trunk backwards with the embedding cotangents, then
+    d(point) = embedding route + weight route (the quotient rule through
+    w / max(sum w, 1e-12), masked by `has` and d^2 <= r^2), then d(o) and
+    d(d) summed over the samples."""
+    nb, skip, S, K, C, coef, wmode, use_affine, sigmoid_plain = static
+    rays, rowc, Bg, Bc = I["rays"], I["rowc"], I["Bs"][0], I["Bs"][1]
+    n = rays.shape[0]
+    o = tFM.trackrow_offsets(S, K)
+    z = rowc[:, :S]
+    r2 = rowc[:, o["r2"]:o["r2"] + 1]
+    has = rowc[:, o["has"]:o["has"] + S] > 0.5
+    cpos = rowc[:, o["cpos"]:o["cpos"] + 3 * S * K].reshape(n, S, K, 3)
+    pts = rays[:, None, :3] + z[..., None] * rays[:, None, 3:]
+    dd = torch.sum(torch.square(cpos - pts[:, :, None]), -1)
+    inr = dd <= r2[..., None]
+    if wmode == 0:
+        w = torch.where(inr, 1.0 / (dd + 1e-10), 0.0)
+    else:
+        w = torch.where(inr, torch.exp(-20.0 * torch.sqrt(
+            torch.clamp(dd, min=1e-12))), 0.0)
+    wsafe = torch.clamp(torch.sum(w, -1, keepdim=True), min=1e-12)
+    f = I["cfeat"].reshape(n, S, K, 2 * C)
+    c = torch.where(has[..., None], torch.sum((w / wsafe)[..., None] * f, 2),
+                    0.0).reshape(n * S, 2 * C)
+    p = pts.reshape(n * S, 3)
+    eg = fourier_features(p, Bg, concat_cos=False)
+    ec = fourier_features(p, Bc, concat_cos=True)
+    trunks = ((eg, c[:, :C], I["geo"], 0, 1), (ec, c[:, C:], I["col"], 1, 3))
+    outs = [emulated_trunk(e, cc, flat, torch.zeros((n * S, nout)), nb, skip,
+                           code, mm)[0] for e, cc, flat, code, nout in trunks]
+    occ = outs[0][:, 0].detach().requires_grad_()
+    raw = outs[1].detach().requires_grad_()
+    depth, color = _tail(occ.reshape(n, S), raw.reshape(n, S, 3), I["aff"],
+                         has, z, coef, use_affine, sigmoid_plain)
+    g_occ, g_raw = torch.autograd.grad([depth, color], [occ, raw],
+                                       [I["g_depth"], I["g_color"]])
+    (_, d_eg, d_cg, _), (_, d_ec, d_cc, _) = [
+        emulated_trunk(e, cc, flat, g, nb, skip, code, mm)
+        for (e, cc, flat, code, _), g in zip(trunks, (g_occ[:, None],
+                                                      g_raw))]
+    # embedding route
+    tp = 2.0 * math.pi
+    proj_c = fourier_proj(p, Bc)
+    m = proj_c.shape[-1]
+    dp = tp * ((torch.cos(fourier_proj(p, Bg)) * d_eg) @ Bg.T) \
+        + tp * ((torch.cos(proj_c) * d_ec[:, :m]
+                 - torch.sin(proj_c) * d_ec[:, m:]) @ Bc.T)
+    # weight route: d wn_j = <dc_g, feat_g_j> + <dc_c, feat_c_j>
+    dwn = torch.sum(d_cg.reshape(n, S, 1, C) * f[..., :C], -1) \
+        + torch.sum(d_cc.reshape(n, S, 1, C) * f[..., C:], -1)
+    inner = torch.sum(dwn * w, -1, keepdim=True) / (wsafe * wsafe)
+    dwj = dwn / wsafe - inner
+    if wmode == 0:
+        ddd = -dwj * w * w
+    else:
+        ddd = dwj * w * (-10.0 / torch.sqrt(torch.clamp(dd, min=1e-12)))
+    ddd = torch.where(inr & has[..., None], ddd, 0.0)
+    dp = dp.reshape(n, S, 3) + torch.sum(
+        ddd[..., None] * 2.0 * (pts[:, :, None] - cpos), 2)
+    return torch.cat([torch.sum(dp, 1), torch.sum(z[..., None] * dp, 1)], 1)
+
+
+@pytest.mark.parametrize("use_affine,wmode", [(False, 0), (True, 0),
+                                              (False, 1)])
+def test_3xtf32_trackloss_drays_meets_check_drays(use_affine, wmode):
+    """Kernel #9's arithmetic with 3xTF32 products, at the full model width
+    on 300 rays, against trackloss_plain (f32, autograd) and float64, by
+    chip_smoke.check_drays's rule: within twice the f32 plain version's
+    distance from float64, in norm and entry by entry.  One TF32 pass per
+    product misses it."""
+    cs = _chip_smoke()
+    I = _track_inputs()
+    static = I["static"] + (0.1, wmode, use_affine, not use_affine)
+    k = emulated_trackloss_drays(I, static, mm3)
+    r = I["rays"].clone().requires_grad_()
+    d, _v, c = tFM.trackloss_plain(r, I["aff"], I["rowc"], I["cfeat"],
+                                   I["geo"], I["col"], I["Bs"], *static)
+    torch.autograd.backward([d, c], [I["g_depth"], I["g_color"]])
+    readings = cs.check_drays(I, static, k, r.grad)
+    print("drays readings", use_affine, wmode, readings)
+    # a single TF32 pass does not meet the rule
+    with pytest.raises(AssertionError, match="trackloss drays"):
+        cs.check_drays(I, static, emulated_trackloss_drays(I, static, mm1),
+                       r.grad)
