@@ -20,22 +20,28 @@ Phases, each printed as one JSON line when it starts and when it ends:
            position cotangent, a ragged n (20003 samples) with colour and
            geometry only, and without the weight gradients; each twice,
            bitwise; kernel / plain times (#4 geometry only beside colour);
-           blocks per SM of the tile kernels
+           blocks per SM of the tile kernels; a digest of #4's outputs
+           (the same bits on any tree whose #4 computes the same)
   trackloss  fused tracker-render kernel pair against trackloss_plain
            (autograd) at the tracker's 2000 rays: sigmoid tail, exposure
-           affine, exp weighting, and a ragged 2001 rays; #9 twice,
-           bitwise; kernel / plain times, #9's device time per pass (under
-           torch.profiler) and blocks per SM of its tile passes
+           affine, exp weighting, and a ragged 2001 rays; #8-9 twice,
+           bitwise; kernel / plain times, #8's and #9's device time per
+           pass (under torch.profiler), blocks per SM of the tile passes
+           and the peak device memory of one #8 launch
   composite  fused-composite kernel #6 through its autograd wrapper
            (nicer_fused_composite) against composite_plain under autograd,
            and kernel #7 (fused_comp_bwd) against the composition it
            replaces (composite_bwd_plain), at the mesh mapping path's shape
            (4000 rays x 5 samples): colour with the sigmoid tail, colour
-           raw (encode_exposure), geometry only; kernel / plain times
+           raw (encode_exposure), geometry only, and a ragged 601 rays;
+           the wrapper twice, bitwise; kernel / plain times, #6's device
+           time per pass, blocks per SM of its tile pass and the peak
+           device memory of one #6 launch
   slam     the port's CLI entry point on configs/Synthetic/synth_tpu.yaml,
            cut to 10 frames, output in a temporary directory; ATE, per-frame
            times and every kernel's launches during the run (with
-           --profile each SLAM run is repeated under torch.profiler)
+           --profile each SLAM run is repeated under torch.profiler, whose
+           kernels must include, and exclude, those of PROFILE_KERNELS)
   slam_fused  the same run with tracking.fused_loss on and
            model.fused_composite off: the fused tracker render and union
            mapping on the fused trunks
@@ -58,6 +64,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import json
 import os
 import re
@@ -661,6 +668,8 @@ def run_trunks(results: dict) -> dict:
         if not need_dp and n == 20000 and wg == with_color:
             case["fwd_device_ms"] = kernel_ms(
                 lambda: FM.launch_trunks(*args, backward=False))
+            case["fwd_sha256"] = digest(*FM.launch_trunks(*args,
+                                                          backward=False))
         cases.append(case)
         if with_color and not need_dp and n == 20000 and wg:
             main = (case, b_f, b_b)
@@ -716,6 +725,29 @@ def kernel_ms(fn, iters: int = 10) -> dict:
             name = ev.key.split("(")[0]
             out[name] = out.get(name, 0.0) + us / 1e3 / iters
     return out
+
+
+def launch_memory(fn) -> dict:
+    """Device memory of one call of ``fn``: the allocator's peak during the
+    call, and that peak less what was allocated before it (the call's own
+    outputs and scratch)."""
+    import torch
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del out
+    return {"peak_bytes": peak, "call_bytes": peak - before}
+
+
+def digest(*ts) -> str:
+    """sha256 (first 16 hex digits) of tensors' bytes, in order."""
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def trackloss_work(mcfg, n, S, K, backward, geo_numel, col_numel):
@@ -832,9 +864,10 @@ def run_trackloss(results: dict) -> dict:
     differentiated by autograd: the SLAM run's sigmoid tail with distance
     weights, the exposure affine, exp weighting, and a ragged 2001 rays
     (10005 samples, not a multiple of #9's 64-sample tile).  Two runs of
-    the wrapper must agree bit for bit.  The bare launcher is timed, #9's
-    device time split by pass, and the occupancy calculator's blocks per
-    SM of its tile passes reported."""
+    the wrapper must agree bit for bit.  The bare launcher is timed, #8's
+    and #9's device time split by pass, the occupancy calculator's blocks
+    per SM of the tile passes and the device memory of one #8 launch
+    reported."""
     import torch
     from hpslam_tpu_torch import _cuda
     from hpslam_tpu_torch.ops import fused_mlp as FM
@@ -888,12 +921,15 @@ def run_trackloss(results: dict) -> dict:
         kw = dict(zip(("n_blocks", "skip", "S", "K", "C", "coef", "wmode",
                        "use_affine", "sigmoid_plain"), static))
 
+        def kernel8():
+            return FM.launch_trackloss(I["rays"], I["aff"], *consts,
+                                       backward=False, **kw)
+
         def kernel9():
             return FM.launch_trackloss(
                 I["rays"], I["aff"], *consts, backward=True,
                 g_depth=I["g_depth"], g_color=I["g_color"], **kw)
-        t_f = cuda_time_ms(lambda: FM.launch_trackloss(
-            I["rays"], I["aff"], *consts, backward=False, **kw))
+        t_f = cuda_time_ms(kernel8)
         t_b = cuda_time_ms(kernel9)
 
         def plain_fwd():
@@ -913,9 +949,13 @@ def run_trackloss(results: dict) -> dict:
                 "drays_vs_float64": stats.pop("drays_f64"),
                 "rel_fro_max": max(stats.values())}
         if main is None:
+            case["fwd_pass_ms"] = {
+                k_: v for k_, v in kernel_ms(kernel8).items()
+                if k_.startswith("tl_")}
             case["bwd_pass_ms"] = {
                 k_: v for k_, v in kernel_ms(kernel9).items()
                 if k_.startswith("tl_")}
+            case["fwd_memory"] = launch_memory(kernel8)
             main = (case, b_f, b_b)
         cases.append(case)
     case, b_f, b_b = main
@@ -924,7 +964,7 @@ def run_trackloss(results: dict) -> dict:
         "max_abs_err": worst["fwd"], "ms": case["fwd_ms"],
         "plain_ms": case["fwd_plain_ms"], "bound_ms": b_f[0],
         "bound_by": b_f[1], "tc_bound_ms": b_f[2],
-        "library_ms": None}
+        "library_ms": None, "pass_ms": case["fwd_pass_ms"]}
     results["trackloss_bwd"] = {
         "max_abs_err": worst["bwd"], "ms": case["bwd_ms"],
         "plain_ms": case["bwd_plain_ms"], "bound_ms": b_b[0],
@@ -935,8 +975,9 @@ def run_trackloss(results: dict) -> dict:
     I = inputs[2000]
     C, emb_g, hid_g, emb_c, hid_c = tile_widths(I)
     lib = _cuda.lib("trackloss")
-    occupancy = {f"pass {k}": lib.hp_trackloss_blocks_per_sm(
-        C, I["K"], emb_g, hid_g, emb_c, hid_c, k) for k in (1, 3)}
+    occupancy = {name: lib.hp_trackloss_blocks_per_sm(
+        C, I["K"], emb_g, hid_g, emb_c, hid_c, k)
+        for name, k in (("pass 1 (#8, #9)", 1), ("pass 3 (#9)", 3))}
     return {"tolerance": {"grad_rel_fro": GRAD_REL_FRO,
                           "grad_elem": [GRAD_ELEM_TOL, GRAD_ELEM_FRAC],
                           "drays_vs_float64": COND_FACTOR},
@@ -1047,25 +1088,37 @@ def run_composite(results: dict) -> dict:
     c_geo, c_col and the colour core), and kernel #7 through fused_comp_bwd
     against composite_bwd_plain, on the same inputs: colour with the
     sigmoid tail (the SLAM run's encode_exposure False), colour raw
-    (encode_exposure), geometry only.  The bare launcher is timed."""
+    (encode_exposure), geometry only, and a ragged 601 rays (3005 samples,
+    not a multiple of #6's 64-sample tile).  Two runs of the wrapper must
+    agree bit for bit.  The bare launcher is timed, #6's device time split
+    by pass, the occupancy calculator's blocks per SM of its tile pass and
+    the device memory of one #6 launch reported."""
     import torch
     from hpslam_tpu_torch import _cuda
     from hpslam_tpu_torch.ops import fused_mlp as FM
     dev = torch.device("cuda")
-    I = composite_inputs(torch, dev)
-    mcfg, S = I["mcfg"], I["S"]
-    n_r = I["z"].shape[0]
+    inputs = {n_r: composite_inputs(torch, dev, n_r=n_r)
+              for n_r in (4000, 601)}
     cases = []
     worst = {"fwd": 0.0, "bwd": 0.0}
     main = None
-    for with_color, sigmoid_rgb in ((True, True), (True, False),
-                                    (False, False)):
+    for with_color, sigmoid_rgb, n_r in ((True, True, 4000),
+                                         (True, False, 4000),
+                                         (False, False, 4000),
+                                         (True, True, 601)):
+        I = inputs[n_r]
+        mcfg, S = I["mcfg"], I["S"]
         before = dict(_cuda.LAUNCHES)
         k = composite_autograd(I, "wrapper", with_color, sigmoid_rgb)
         for name in ("composite_fwd", "trunks_bwd"):
             if _cuda.LAUNCHES[name] != before.get(name, 0) + 1:
                 raise AssertionError(f"composite: the wrapper did not "
                                      f"launch {name} once")
+        again = composite_autograd(I, "wrapper", with_color, sigmoid_rgb)
+        if not all(torch.equal(a, b) for a, b in
+                   zip((*k[:5], *k[5]), (*again[:5], *again[5]))):
+            raise AssertionError(f"composite: kernel 6 (and its backward) "
+                                 f"does not repeat bitwise (n_r={n_r})")
         p = composite_autograd(I, "plain", with_color, sigmoid_rgb)
         args = (I["p"], I["cg"], I["cc"] if with_color else None, I["z"],
                 I["pm"], I["Bs"], I["geo"], I["col"] if with_color else [],
@@ -1093,7 +1146,17 @@ def run_composite(results: dict) -> dict:
             mx, fro = compare_grads(name, a, b, "composite")
             worst[which] = max(worst[which], mx)
             stats[name] = fro
-        t6 = cuda_time_ms(lambda: FM.launch_composite(*args))
+        case = {"with_color": with_color, "sigmoid_rgb": sigmoid_rgb,
+                "n_rays": n_r, "S": S, "bitwise_repeat": True,
+                "rel_fro_max": max(stats.values()),
+                "worst": max(stats, key=stats.get)}
+        cases.append(case)
+        if n_r != 4000:
+            continue
+
+        def kernel6():
+            return FM.launch_composite(*args)
+        t6 = cuda_time_ms(kernel6)
         t7 = cuda_time_ms(lambda: FM.launch_composite(
             *args, backward=True, dD=I["dD"], dV=I["dV"], dC=I["dC"],
             need_wgrads=True), iters=10)
@@ -1110,12 +1173,14 @@ def run_composite(results: dict) -> dict:
                                       *numel))
         b7 = bound_ms(*composite_work(mcfg, n_r, S, with_color, True, True,
                                       *numel))
-        case = {"with_color": with_color, "sigmoid_rgb": sigmoid_rgb,
-                "n_rays": n_r, "S": S, "fwd_ms": t6, "fwd_plain_ms": tp6,
-                "fwd_bound_ms": b6[0], "bwd_ms": t7, "bwd_plain_ms": tp7,
-                "bwd_bound_ms": b7[0], "bound_by": b7[1],
-                "rel_fro_max": max(stats.values())}
-        cases.append(case)
+        case.update({"fwd_ms": t6, "fwd_plain_ms": tp6,
+                     "fwd_bound_ms": b6[0], "fwd_tc_bound_ms": b6[2],
+                     "fwd_pass_ms": {
+                         k_: v for k_, v in kernel_ms(kernel6).items()
+                         if k_.startswith("cp_")},
+                     "fwd_memory": launch_memory(kernel6),
+                     "bwd_ms": t7, "bwd_plain_ms": tp7,
+                     "bwd_bound_ms": b7[0], "bound_by": b7[1]})
         if main is None:
             main = (case, b6, b7)
     _cuda.reset_launches()
@@ -1124,15 +1189,22 @@ def run_composite(results: dict) -> dict:
         "max_abs_err": worst["fwd"], "ms": case["fwd_ms"],
         "plain_ms": case["fwd_plain_ms"], "bound_ms": b6[0],
         "bound_by": b6[1], "tc_bound_ms": b6[2],
-        "library_ms": None}
+        "library_ms": None, "pass_ms": case["fwd_pass_ms"],
+        "geo_only_ms": cases[2]["fwd_ms"],
+        "geo_only_tc_bound_ms": cases[2]["fwd_tc_bound_ms"]}
     results["composite_bwd"] = {
         "max_abs_err": worst["bwd"], "ms": case["bwd_ms"],
         "plain_ms": case["bwd_plain_ms"], "bound_ms": b7[0],
         "bound_by": b7[1], "tc_bound_ms": b7[2],
         "library_ms": None}
+    widths = tile_widths(inputs[4000])
+    lib = _cuda.lib("composite")
+    occupancy = {w: lib.hp_composite_blocks_per_sm(*widths,
+                                                    int(w == "colour"))
+                 for w in ("colour", "geometry")}
     return {"tolerance": {"grad_rel_fro": GRAD_REL_FRO,
                           "grad_elem": [GRAD_ELEM_TOL, GRAD_ELEM_FRAC]},
-            "cases": cases}
+            "blocks_per_sm": occupancy, "cases": cases}
 
 
 def run_scatter_repeat() -> dict:
@@ -1185,10 +1257,21 @@ PROFILE_GROUPS = [
 ]
 
 
-def profile_run(run_once) -> dict:
+# kernel-name fragments that a profiled SLAM run must show (and must not):
+# #8 and #6 run on the tile passes, not on the scalar passes they replaced
+PROFILE_KERNELS = {
+    "slam_fused": (("tl_fwd_tiles", "tl_rays", "tl_bwd_tiles"),
+                   ("tl_fwd_samples",)),
+    "slam_mesh": (("cp_fwd_tiles", "cp_rays"), ("cp_samples",)),
+}
+
+
+def profile_run(run_once, name: str = "") -> dict:
     """Run ``run_once()`` under torch.profiler: wall time, device busy
     share (summed kernel time over wall time, one stream), device time per
-    group of PROFILE_GROUPS and the 15 costliest kernels."""
+    group of PROFILE_GROUPS and the 15 costliest kernels.  Fails if the
+    kernels miss one that PROFILE_KERNELS[name] requires or show one that
+    it excludes."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1213,6 +1296,12 @@ def profile_run(run_once) -> dict:
         g = next((g for g, keys in PROFILE_GROUPS
                   if any(k in low for k in keys)), "other")
         groups[g] = groups.get(g, 0.0) + us
+    shown, hidden = PROFILE_KERNELS.get(name, ((), ()))
+    missing = [k for k in shown if not any(k in n for n in kernels)]
+    present = [k for k in hidden if any(k in n for n in kernels)]
+    if missing or present:
+        raise AssertionError(f"{name} profile: kernels missing {missing}, "
+                             f"kernels present {present}")
     total_s = sum(v[0] for v in kernels.values()) / 1e6
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]
     return {"wall_s": wall, "device_kernel_s": total_s,
@@ -1297,7 +1386,7 @@ def run_slam(out_dir: str, name: str = "slam", profile: bool = False,
             torch.cuda.synchronize()
             launches = dict(_cuda.LAUNCHES)
             prof = (profile_run(lambda: R.run(
-                argv + ["--output", os.path.join(work, "prof")])[1])
+                argv + ["--output", os.path.join(work, "prof")])[1], name)
                 if profile else None)
         traj = load_checkpoint(latest_checkpoint(os.path.join(
             work, "out")))["estimate_c2w_list"]

@@ -55,7 +55,7 @@ SIGNATURES = {
           _P, _P, _I, _P], _I),                  # dcw wpart wsplits stream
     ],
     "trackloss": [
-        ("hp_trackloss_scratch_floats", [_I] * 9, _L),
+        ("hp_trackloss_scratch_floats", [_I] * 6, _L),
         ("hp_trackloss_blocks_per_sm", [_I] * 7, _I),
         ("hp_trackloss",
          [_P, _P, _I, _P, _P, _P, _P, _P, _P,    # rays rowc Dr .. gw cw
@@ -65,7 +65,8 @@ SIGNATURES = {
           _P], _I),                              # stream
     ],
     "composite": [
-        ("hp_composite_scratch_floats", [_I] * 8, _L),
+        ("hp_composite_scratch_floats", [_I] * 9, _L),
+        ("hp_composite_blocks_per_sm", [_I] * 6, _I),
         ("hp_composite",
          [_P, _P, _P, _P, _P, _P, _P, _P, _P,    # p cg cc z pm Bg Bc gw cw
           _I, _I, _I, _I, _I, _I, _I, _I, _I,    # n_r S C emb/hid nb skip

@@ -6,22 +6,29 @@
 // `_bwd_comp_kernel` (:418, launched by `_fused_comp_bwd` :756).
 //
 // Forward (kernel #6), rays of S samples, sample rows ray-major:
-//   1. one thread per sample: the Fourier embeds, the ReLU geometry trunk
-//      -> occ logit and, with colour, the Softplus(beta=100) colour trunk
-//      -> rgb, then a sigmoid when sigmoid_rgb (nicer_trunk.cuh); occ and
-//      rgb are written per sample (the residuals the backward reads);
-//   2. one thread per ray: the occupancy compositor of `_comp_fwd` :227
-//      (occ forced to -100 where pm = 0, alpha = sigmoid(coef occ),
-//      transmittance prod (1 - alpha + 1e-10), wsum + 1e-10) -> depth,
-//      depth variance, colour.
-// Backward (kernel #7): pass 1 again (the forward recomputed, its trunk
-// rows kept in scratch, as `_bwd_comp_kernel` recomputes them), pass 2
-// with the per-ray cotangents dD, dV, dC: the compositor backward of
-// `_comp_bwd` :246 (the reverse suffix loop over S, d occ masked by pm),
-// the sigmoid chain, written over the trunk output rows; 3. one thread per
-// sample: both trunk backwards -> d c_geo, d c_col; then, with colour and
-// need_wgrads, the colour core's weight gradients by the fixed-order tiled
-// passes of nicer_trunk.cuh.  No atomics: results repeat run to run.
+//   1. a tile of TC_TM samples per block (cp_fwd_tiles): the Fourier
+//      embeds, the ReLU geometry trunk -> occ logit and, with colour, the
+//      Softplus(beta=100) colour trunk -> rgb, then a sigmoid when
+//      sigmoid_rgb, on the tensor cores at f32 accuracy (3xTF32 mma.sync,
+//      nicer_trunk_tc.cuh); the samples run tc_trunks_fwd_tile, as the
+//      trunk forward #4 does.  occ and rgb are written per sample (the
+//      residuals the backward reads); nothing else leaves the chip;
+//   2. one thread per ray (cp_rays): the occupancy compositor of
+//      `_comp_fwd` :227 (occ forced to -100 where pm = 0, alpha =
+//      sigmoid(coef occ), transmittance prod (1 - alpha + 1e-10), wsum +
+//      1e-10) -> depth, depth variance, colour.
+// A ray's S samples may straddle two tiles, so the compositor keeps its
+// own launch.
+// Backward (kernel #7), still on the scalar trunk code of nicer_trunk.cuh,
+// one sample per thread: 1. (cp_samples) the forward recomputed, its
+// trunk rows kept in scratch, as `_bwd_comp_kernel` recomputes them;
+// 2. cp_rays with the per-ray cotangents dD, dV, dC: the compositor
+// backward of `_comp_bwd` :246 (the reverse suffix loop over S, d occ
+// masked by pm), the sigmoid chain, written over the trunk output rows;
+// 3. (cp_bwd_samples) both trunk backwards -> d c_geo, d c_col; then, with
+// colour and need_wgrads, the colour core's weight gradients by the
+// fixed-order tiled passes of nicer_trunk.cuh.  No atomics: results repeat
+// run to run.
 //
 // Blocks run in no order on the card, so the Pallas body (one grid step
 // holds whole rays) is split where a ray needs all its samples (pass 2)
@@ -29,16 +36,32 @@
 //
 // Bound on the card: operations (both trunks, ~0.2 MFLOP per sample
 // forward and twice that backward, against ~0.3 kB of input per sample).
-// Scalar f32 FMAs one sample per thread, as trunks.cu: simple first;
-// tensor-core tiles are later work.
-#include "nicer_trunk.cuh"
+// The forward's tile holds both trunks' activations in shared memory;
+// geometry-only stages ask for the geometry trunk's layout alone, so two
+// blocks fit an SM.
+#include "nicer_trunk_tc.cuh"
 
 struct CShape {
   int n_r, S, C, with_color, sigmoid_rgb, backward;
   float coef;
 };
 
-// Pass 1: one thread per sample.
+// Pass 1 of kernel #6: a tile of TC_TM samples per block, both trunk
+// forwards; occ and rgb straight from the output tile.
+__global__ void __launch_bounds__(TC_THREADS, 2)
+    cp_fwd_tiles(const float* __restrict__ p, const float* __restrict__ cg,
+                 const float* __restrict__ cc, const float* __restrict__ Bg,
+                 const float* __restrict__ Bc, Core gw, Core cw, CShape sh,
+                 TcSmem sm, float* __restrict__ occ,
+                 float* __restrict__ rgb) {
+  extern __shared__ float4 tc_raw[];
+  tc_trunks_fwd_tile(p, cg, cc, Bg, Bc, gw, cw, sh.C, sh.with_color != 0,
+                     sh.sigmoid_rgb != 0, tc_tile((float*)tc_raw, sm),
+                     (long)blockIdx.x * TC_TM, (long)sh.n_r * sh.S, occ,
+                     rgb);
+}
+
+// Pass 1 of kernel #7: one thread per sample, the trunk rows to scratch.
 __global__ void cp_samples(const float* __restrict__ p,
                            const float* __restrict__ cg,
                            const float* __restrict__ cc,
@@ -168,13 +191,32 @@ __global__ void cp_bwd_samples(Core gw, Core cw, Rows rg, Rows rc,
   }
 }
 
-// Floats of scratch the entry point needs for n sample rows.
+// Floats of scratch the entry point needs for n sample rows: none for the
+// forward (kernel #6 keeps its activations on chip).
 extern "C" long hp_composite_scratch_floats(int n, int C, int emb_g,
                                             int hid_g, int emb_c, int hid_c,
-                                            int nb, int with_color) {
+                                            int nb, int with_color,
+                                            int backward) {
+  if (!backward) return 0;
   long rows = trunk_rows(emb_g, hid_g, C, nb, 1);
   if (with_color) rows += trunk_rows(emb_c, hid_c, C, nb, 3);
   return rows * (long)n;
+}
+
+// Blocks of kernel #6's tile pass (cp_fwd_tiles) that fit one SM at these
+// widths, from the CUDA occupancy calculator; negative: a CUDA error.
+extern "C" int hp_composite_blocks_per_sm(int C, int emb_g, int hid_g,
+                                          int emb_c, int hid_c,
+                                          int with_color) {
+  TcSmem sm;
+  const int smem = tc_trunks_smem(C, emb_g, hid_g, emb_c, hid_c, with_color,
+                                  &sm);
+  int blocks = 0;
+  int rc = tc_smem_attr(cp_fwd_tiles, smem);
+  if (!rc)
+    rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, cp_fwd_tiles, TC_THREADS, smem);
+  return rc ? -rc : blocks;
 }
 
 // C entry point (bound with ctypes).  n_r rays of S samples; p (n_r*S, 3),
@@ -187,7 +229,8 @@ extern "C" long hp_composite_scratch_floats(int n, int C, int emb_g,
 //     (n_r*S, C) and, with colour and need_wgrads, the colour-core weight
 //     grads into dcw (flatten_core order, 4*nb+2 device pointers).
 // scratch holds hp_composite_scratch_floats(...) floats; wpart holds
-// wsplits * (emb_c + hid_c) * hid_c floats.  Returns the first CUDA error.
+// wsplits * (emb_c + hid_c) * hid_c floats.  The forward needs hid_g,
+// hid_c and C to be multiples of 8.  Returns the first CUDA error.
 extern "C" int hp_composite(
     const float* p, const float* cg, const float* cc, const float* z,
     const float* pmask, const float* Bg, const float* Bc,
@@ -206,25 +249,42 @@ extern "C" int hp_composite(
   Core gcore = make_core(gw, nb, skip, emb_g, hid_g, C, 1);
   Core ccore = with_color ? make_core(cw, nb, skip, emb_c, hid_c, C, 3)
                           : gcore;
+  CShape sh;
+  sh.n_r = n_r; sh.S = S; sh.C = C; sh.with_color = with_color;
+  sh.sigmoid_rgb = sigmoid_rgb; sh.backward = backward; sh.coef = coef;
+  const int TB = 128;
+  const unsigned gr = (unsigned)((n_r + TB - 1) / TB);
+  cudaError_t e;
+  if (!backward) {
+    if (hid_g % 8 || hid_c % 8 || C % 8) return (int)cudaErrorInvalidValue;
+    TcSmem sm;
+    const int smem = tc_trunks_smem(C, emb_g, hid_g, emb_c, hid_c,
+                                    with_color, &sm);
+    const int rc0 = tc_smem_attr(cp_fwd_tiles, smem);
+    if (rc0) return rc0;
+    cp_fwd_tiles<<<(unsigned)((M + TC_TM - 1) / TC_TM), TC_THREADS, smem,
+                   st>>>(p, cg, cc, Bg, Bc, gcore, ccore, sh, sm, occ, rgb);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    const Rows none = {};
+    cp_rays<<<gr, TB, 0, st>>>(z, pmask, occ, rgb, sh, dD, dV, dC, depth,
+                               var, color, none, none);
+    return (int)cudaGetLastError();
+  }
   Rows rg = make_rows(scratch, M, emb_g, hid_g, C, nb, 1);
   Rows rc = rg;
   if (with_color)
     rc = make_rows(scratch + trunk_rows(emb_g, hid_g, C, nb, 1) * M, M,
                    emb_c, hid_c, C, nb, 3);
-  CShape sh;
-  sh.n_r = n_r; sh.S = S; sh.C = C; sh.with_color = with_color;
-  sh.sigmoid_rgb = sigmoid_rgb; sh.backward = backward; sh.coef = coef;
-  const int TB = 128;
   const unsigned gs = (unsigned)((M + TB - 1) / TB);
-  const unsigned gr = (unsigned)((n_r + TB - 1) / TB);
   cp_samples<<<gs, TB, 0, st>>>(p, cg, cc, Bg, Bc, gcore, ccore, rg, rc, sh,
                                 occ, rgb);
-  cudaError_t e = cudaGetLastError();
+  e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   cp_rays<<<gr, TB, 0, st>>>(z, pmask, occ, rgb, sh, dD, dV, dC, depth, var,
                              color, rg, rc);
   e = cudaGetLastError();
-  if (e != cudaSuccess || !backward) return (int)e;
+  if (e != cudaSuccess) return (int)e;
   cp_bwd_samples<<<gs, TB, 0, st>>>(gcore, ccore, rg, rc, sh, dcg, dcc);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;

@@ -1,9 +1,9 @@
 // NICER decoder trunks, one sample per thread, shared by the port's
 // kernels that have not moved onto the tensor-core tiles of
-// nicer_trunk_tc.cuh: the mapping-loss forward of maploss.cu (kernel #2),
-// the composite pair of composite.cu (#6, #7) and the tracker-loss forward
-// of trackloss.cu (#8).  The structs, activations and Fourier projection
-// here are shared by the tile code too.
+// nicer_trunk_tc.cuh: the mapping-loss forward of maploss.cu (kernel #2)
+// and the composite backward of composite.cu (#7).  The structs,
+// activations and Fourier projection here are shared by the tile code
+// too.
 //
 // Device code for the two trunks of hpslam_tpu/ops/fused_mlp.py
 // (`_trunk_fwd_block` :140, `_trunk_bwd_block` :169, `_embed_geo` /

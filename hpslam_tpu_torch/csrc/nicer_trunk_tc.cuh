@@ -1,7 +1,9 @@
 // NICER decoder trunks on Hopper's tensor cores, a tile of samples per
 // block, shared by the mapping-loss backward of maploss.cu (kernel #3), the
-// trunk pair of trunks.cu (kernels #4 and #5) and the tracker-loss backward
-// of trackloss.cu (kernel #9).
+// trunk pair of trunks.cu (kernels #4 and #5), the composite forward of
+// composite.cu (kernel #6) and the tracker-loss pair of trackloss.cu
+// (kernels #8 and #9).  #4 and #6 run one device function for their
+// samples (tc_trunks_fwd_tile), so that the two cannot drift apart.
 //
 // Device code for the two trunks of hpslam_tpu/ops/fused_mlp.py
 // (`_trunk_fwd_block` :142, `_trunk_bwd_block` :170): the ReLU geometry
@@ -324,6 +326,22 @@ __device__ void tile_rows_to_g(const float* G, int nout, float* Gs, long m0,
   }
 }
 
+// Cs (TC_TM x C) from a sample-major (n, C) feature and, if Cg is given,
+// the feature rows.
+__device__ void tile_feat(const float* __restrict__ c, int C, float* Cs,
+                          float* Cg, long m0, long M) {
+  for (int e = threadIdx.x; e < TC_TM * C; e += blockDim.x) {
+    const int r = e / C, ch = e % C;
+    const long m = m0 + r;
+    float v = 0.0f;
+    if (m < M) {
+      v = c[m * C + ch];
+      if (Cg) Cg[(long)ch * M + m] = v;
+    }
+    Cs[r * (C + 4) + ch] = v;
+  }
+}
+
 // ---------------------------------------------------------------------------
 // Trunk forward and backward on a tile
 
@@ -494,6 +512,55 @@ __device__ void tc_trunk_bwd(const Core& w, const Rows& rw, int code,
     }
   }
   __syncthreads();
+}
+
+// Both trunk forwards on the tile of samples m0 .. m0 + TC_TM (kernels #4
+// and #6): the Fourier embeds, the ReLU geometry trunk and, with colour,
+// the Softplus(beta=100) colour trunk.  occ (M,) and rgb (M, 3) go straight
+// from the output tile, no scratch rows: rgb is zero without colour, and
+// sigmoid(rgb) with sigmoid_rgb.  p (M, 3), cg / cc (M, C) sample-major.
+__device__ void tc_trunks_fwd_tile(
+    const float* __restrict__ p, const float* __restrict__ cg,
+    const float* __restrict__ cc, const float* __restrict__ Bg,
+    const float* __restrict__ Bc, const Core& gw, const Core& cw, int C,
+    bool with_color, bool sigmoid_rgb, const TcTile& T, long m0, long M,
+    float* __restrict__ occ, float* __restrict__ rgb) {
+  const Rows none = {};
+  for (int e = threadIdx.x; e < TC_TM * 3; e += blockDim.x)
+    T.Ps[e] = m0 + e / 3 < M ? p[3 * m0 + e] : 0.0f;
+  tile_feat(cg, C, T.Cs, nullptr, m0, M);
+  __syncthreads();
+  const int embp_g = round8(gw.emb);
+  tile_embed(T.Ps, Bg, false, gw.emb, embp_g, T.Es, nullptr, m0, M);
+  __syncthreads();
+  tc_trunk_fwd(gw, none, 0, T, embp_g, m0, M, false, true);
+  for (int r = threadIdx.x; r < TC_TM; r += blockDim.x)
+    if (m0 + r < M) occ[m0 + r] = T.Gs[r * TC_GLD];
+  if (with_color) {
+    // Cs, Es and Gs are rewritten only after the syncs that follow
+    // (tc_trunk_fwd's layer staging), so the occ reads above are done
+    tile_feat(cc, C, T.Cs, nullptr, m0, M);
+    const int embp_c = round8(cw.emb);
+    tile_embed(T.Ps, Bc, true, cw.emb, embp_c, T.Es, nullptr, m0, M);
+    __syncthreads();
+    tc_trunk_fwd(cw, none, 1, T, embp_c, m0, M, false, true);
+  }
+  for (int e = threadIdx.x; e < TC_TM * 3; e += blockDim.x) {
+    const int r = e / 3, c = e % 3;
+    if (m0 + r < M) {
+      const float v = with_color ? T.Gs[r * TC_GLD + c] : 0.0f;
+      rgb[3 * (m0 + r) + c] = with_color && sigmoid_rgb ? sigm(v) : v;
+    }
+  }
+}
+
+// Dynamic shared memory (bytes) of a tile kernel that runs the geometry
+// trunk and, with colour, the colour trunk (#4, #5, #6): the layout in sm.
+static int tc_trunks_smem(int C, int emb_g, int hid_g, int emb_c, int hid_c,
+                          int with_color, TcSmem* sm) {
+  *sm = tc_smem(round8(emb_g), hid_g, round8(emb_c), hid_c, C,
+                with_color != 0);
+  return sm->total * (int)sizeof(float);
 }
 
 // Dynamic shared memory above 48 KB has to be asked for per kernel.

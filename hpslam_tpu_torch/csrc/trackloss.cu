@@ -16,13 +16,11 @@
 //
 // Passes (blocks run in no order on the card, so the Pallas body is split
 // where a ray needs all its samples or a sample needs its ray):
-//   1. the samples' forward.  Kernel #8 (forward only, tl_fwd_samples):
-//      one thread per (ray, sample), point, weights, feature mix, embeds,
-//      both trunk forwards into scratch rows on the scalar f32 code of
-//      nicer_trunk.cuh.  Kernel #9 (tl_fwd_tiles): a tile of TC_TM samples
-//      per block, both trunk forwards on the tensor cores (3xTF32 mma.sync,
-//      nicer_trunk_tc.cuh); only the pre-activations and the trunk outputs
-//      go to scratch rows.
+//   1. a tile of TC_TM samples per block (tl_fwd_tiles), in both kernels:
+//      the points, the neighbour weights, the feature mix, then both trunk
+//      forwards on the tensor cores (3xTF32 mma.sync, nicer_trunk_tc.cuh).
+//      The trunk outputs go to G rows; #9 keeps the pre-activations in A
+//      rows too, for its backward, #8 nothing else.
 //   2. one thread per ray (tl_rays): colour tail, compositor -> depth,
 //      var, colour; backward: the compositor backward (dw, the suffix sum,
 //      d occ masked by `has`, d rgb), the tail backward (d raw, d aff summed
@@ -33,6 +31,8 @@
 //      quotient rule through w / max(sum w, 1e-12), masked by d^2 <= r^2).
 //   4. backward, one thread per ray (tl_drays): d(o) = sum_s d(point_s),
 //      d(d) = sum_s z_s d(point_s), in sample order.
+// Kernel #8 is passes 1-2, #9 passes 1-4: #8's outputs and #9's forward
+// recompute come from the same pass, so they are the same bits.
 // A ray's S samples may straddle two tiles, so the per-ray work keeps its
 // own launches, and each sample of a tile reads its own ray's cache row.
 // `has` (enough neighbours inside the radius) comes from the frozen search
@@ -42,12 +42,11 @@
 //
 // Bound on the card: operations (both trunks, ~0.2 MFLOP per sample
 // forward, twice that backward, against ~2 kB of cached neighbour
-// features and positions per sample).  The tile passes of #9 hold both
-// trunks' activations in shared memory and run their products on the
-// tensor cores; the feature mix and the weight route, scalar f32, are
-// spread over all the block's threads, the features read from device
-// memory (~2 kB a sample, too large to stage).  Kernel #8 still runs the
-// scalar trunks, one sample per thread.
+// features and positions per sample).  The tile passes hold both trunks'
+// activations in shared memory and run their products on the tensor
+// cores; the feature mix and the weight route, scalar f32, are spread over
+// all the block's threads, the features read from device memory (~2 kB a
+// sample, too large to stage).
 #include "nicer_trunk_tc.cuh"
 
 #define HP_MAXK 16   // most neighbours per sample supported
@@ -95,41 +94,6 @@ __device__ float point_weights(const float* __restrict__ rays,
     wsum += wj;
   }
   return fmaxf(wsum, 1e-12f);
-}
-
-// Pass 1 of kernel #8: one thread per (ray, sample), m = ray*S + s.
-__global__ void tl_fwd_samples(const float* __restrict__ rays,
-                               const float* __restrict__ rowc,
-                               const float* __restrict__ cfeat,
-                               const float* __restrict__ Bg,
-                               const float* __restrict__ Bc, Core gw,
-                               Core cw, Rows rg, Rows rc, TLShape sh) {
-  const long M = (long)sh.n * sh.S;
-  const long m = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (m >= M) return;
-  const long ray = m / sh.S;
-  const int s = (int)(m % sh.S);
-  const int C = sh.C;
-  const float* rp = rowc + ray * sh.Dr;
-  float pts[3], w[HP_MAXK], dd[HP_MAXK];
-  const float wsafe = point_weights(rays, rp, sh, ray, s, pts, w, dd);
-  const bool has = rp[o_has(sh.S) + s] > 0.5f;
-  const float* f = cfeat + ray * ((long)sh.S * sh.K * 2 * C)
-                   + (long)s * sh.K * 2 * C;
-  for (int ch = 0; ch < C; ++ch) {
-    float ag = 0.0f, ac = 0.0f;
-    for (int j = 0; j < sh.K; ++j) {
-      const float wn = w[j] / wsafe;
-      ag += wn * f[j * 2 * C + ch];
-      ac += wn * f[j * 2 * C + C + ch];
-    }
-    rg.Cf[(long)ch * M + m] = has ? ag : 0.0f;
-    rc.Cf[(long)ch * M + m] = has ? ac : 0.0f;
-  }
-  embed_fwd(pts, Bg, false, rg, gw.emb, m, M);
-  trunk_fwd(gw, rg, 0, m, M);
-  embed_fwd(pts, Bc, true, rc, cw.emb, m, M);
-  trunk_fwd(cw, rc, 1, m, M);
 }
 
 // Pass 2: one thread per ray.
@@ -234,11 +198,14 @@ __global__ void tl_rays(const float* __restrict__ rowc,
   for (int q = 0; q < 12; ++q) daff[r * 12 + q] = da_acc[q];
 }
 
-// Shared memory of the tile passes of kernel #9 beyond the trunk layout
+// Shared memory of the tile passes beyond the trunk layout
 // sm: the colour feature, then its cotangent (Xs, TC_TM x (C+4)), so that
 // both trunks' dL/dc are at hand for the weight route; and per-neighbour
 // values of each sample (Wk, TC_TM x K: the normalised weights in pass 1,
-// d wn in pass 3).
+// d wn in pass 3).  Kernel #8 runs pass 1 with this layout too: a forward
+// that mixed the colour feature after the geometry trunk could do without
+// Xs (9.2 KB), but the colour layout alone still fits one block per SM,
+// and one pass keeps #8's outputs equal to #9's recompute bit for bit.
 struct TLTile {
   TcTile geo, col;    // col: the same buffers with Cs = Xs
   float* Wk;
@@ -283,10 +250,10 @@ __device__ void tile_mix(const float* __restrict__ rowc,
   }
 }
 
-// Pass 1 of kernel #9: a tile of TC_TM samples per block, m = ray*S + s.
-// The points, the normalised neighbour weights, the feature mix, then both
-// trunk forwards on the tensor cores; the pre-activations and the outputs
-// to the A and G rows.
+// Pass 1 of kernels #8 and #9: a tile of TC_TM samples per block, m =
+// ray*S + s.  The points, the normalised neighbour weights, the feature
+// mix, then both trunk forwards on the tensor cores; the outputs to the G
+// rows and, if the rows have them, the pre-activations to the A rows.
 __global__ void __launch_bounds__(TC_THREADS)
     tl_fwd_tiles(const float* __restrict__ rays,
                  const float* __restrict__ rowc,
@@ -433,36 +400,34 @@ __global__ void tl_drays(const float* __restrict__ rowc, TLShape sh,
   }
 }
 
-// Rows of one trunk in the tile passes of kernel #9: the pre-activations
-// (A) and the output, then its cotangent (G); nothing else goes to device
-// memory.
-static Rows tile_rows(float* base, long M, int hid, int nb) {
+// Rows of one trunk in the tile passes: the output, then its cotangent
+// (G); with keep_a (kernel #9) the pre-activations (A) before it.  Nothing
+// else goes to device memory.
+static Rows tile_rows(float* base, long M, int hid, int nb, bool keep_a) {
   Rows r = {};
-  r.A = base;
-  r.G = base + (long)nb * hid * M;
+  r.A = keep_a ? base : nullptr;
+  r.G = keep_a ? base + (long)nb * hid * M : base;
   return r;
 }
 
-// Floats of scratch the entry point needs for n rays of S samples: kernel
-// #8 the scalar pass's rows of both trunks; kernel #9 both trunks' A and G
-// rows and the 3 rows of d(point).
-extern "C" long hp_trackloss_scratch_floats(int n, int S, int C, int emb_g,
-                                            int hid_g, int emb_c, int hid_c,
-                                            int nb, int backward) {
+// Floats of scratch the entry point needs for n rays of S samples: both
+// trunks' G rows (1 + 3); kernel #9 also their A rows and the 3 rows of
+// d(point).
+extern "C" long hp_trackloss_scratch_floats(int n, int S, int hid_g,
+                                            int hid_c, int nb, int backward) {
   const long M = (long)n * S;
   if (backward) return ((long)nb * (hid_g + hid_c) + 1 + 3 + 3) * M;
-  return (trunk_rows(emb_g, hid_g, C, nb, 1)
-          + trunk_rows(emb_c, hid_c, C, nb, 3)) * M;
+  return 4 * M;
 }
 
-// Dynamic shared memory (bytes) of the tile passes of kernel #9.
+// Dynamic shared memory (bytes) of the tile passes.
 static int trackloss_smem(int C, int K, int emb_g, int hid_g, int emb_c,
                           int hid_c, TcSmem* sm) {
   *sm = tc_smem(round8(emb_g), hid_g, round8(emb_c), hid_c, C, true);
   return tl_tile_floats(*sm, C, K) * (int)sizeof(float);
 }
 
-// Blocks of a tile pass of kernel #9 (pass 1 or 3) that fit one SM at these
+// Blocks of a tile pass (pass 1: #8 and #9, or 3) that fit one SM at these
 // widths, from the CUDA occupancy calculator; negative: a CUDA error.
 extern "C" int hp_trackloss_blocks_per_sm(int C, int K, int emb_g, int hid_g,
                                           int emb_c, int hid_c, int pass) {
@@ -486,7 +451,8 @@ extern "C" int hp_trackloss_blocks_per_sm(int C, int K, int emb_g, int hid_g,
 // C entry point (bound with ctypes).
 //   backward == 0: kernel #8: depth (n,), var (n,), color (n, 3).
 //   backward == 1: kernel #9: from g_depth (n,), g_color (n, 3): drays
-//     (n, 6), daff (n, 12); needs hid_g, hid_c and C to be multiples of 8.
+//     (n, 6), daff (n, 12).
+// Both need hid_g, hid_c and C to be multiples of 8.
 // rays (n, 6) [o | d], rowc (n, Dr), cfeat (n, S*K*2C), aff (n, 12); Bg
 // (3, emb_g), Bc (3, emb_c / 2); gw / cw: host arrays of device pointers
 // to the core tensors in flatten_core order.  scratch holds
@@ -504,8 +470,7 @@ extern "C" int hp_trackloss(
   if (S > HP_MAXS || S < 1 || K > HP_MAXK || K < 1 || nb > HP_MAXB
       || nb < 1)
     return (int)cudaErrorInvalidValue;
-  if (backward && (hid_g % 8 || hid_c % 8 || C % 8))
-    return (int)cudaErrorInvalidValue;
+  if (hid_g % 8 || hid_c % 8 || C % 8) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const long M = (long)n * S;
   Core gcore = make_core(gw, nb, skip, emb_g, hid_g, C, 1);
@@ -516,37 +481,23 @@ extern "C" int hp_trackloss(
   sh.sigmoid_plain = sigmoid_plain; sh.backward = backward; sh.coef = coef;
   const int TB = 128;
   const unsigned gr = (unsigned)((n + TB - 1) / TB);
-  cudaError_t e;
-  if (!backward) {
-    // kernel #8: the scalar pass 1 (its move onto the tiles is later work)
-    Rows rg = make_rows(scratch, M, emb_g, hid_g, C, nb, 1);
-    Rows rc = make_rows(scratch + trunk_rows(emb_g, hid_g, C, nb, 1) * M, M,
-                        emb_c, hid_c, C, nb, 3);
-    tl_fwd_samples<<<(unsigned)((M + TB - 1) / TB), TB, 0, st>>>(
-        rays, rowc, cfeat, Bg, Bc, gcore, ccore, rg, rc, sh);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    tl_rays<<<gr, TB, 0, st>>>(rowc, aff, rg, rc, sh, g_depth, g_color,
-                               depth, var, color, daff);
-    return (int)cudaGetLastError();
-  }
-  Rows rg = tile_rows(scratch, M, hid_g, nb);
-  Rows rc = tile_rows(rg.G + M, M, hid_c, nb);
-  float* P = rc.G + 3 * M;
+  Rows rg = tile_rows(scratch, M, hid_g, nb, backward);
+  Rows rc = tile_rows(rg.G + M, M, hid_c, nb, backward);
   TcSmem sm;
   const int smem = trackloss_smem(C, K, emb_g, hid_g, emb_c, hid_c, &sm);
   int rc0 = tc_smem_attr(tl_fwd_tiles, smem);
-  if (!rc0) rc0 = tc_smem_attr(tl_bwd_tiles, smem);
+  if (!rc0 && backward) rc0 = tc_smem_attr(tl_bwd_tiles, smem);
   if (rc0) return rc0;
   const unsigned gt = (unsigned)((M + TC_TM - 1) / TC_TM);
   tl_fwd_tiles<<<gt, TC_THREADS, smem, st>>>(rays, rowc, cfeat, Bg, Bc,
                                              gcore, ccore, rg, rc, sh, sm);
-  e = cudaGetLastError();
+  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   tl_rays<<<gr, TB, 0, st>>>(rowc, aff, rg, rc, sh, g_depth, g_color, depth,
                              var, color, daff);
   e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  if (e != cudaSuccess || !backward) return (int)e;
+  float* P = rc.G + 3 * M;
   tl_bwd_tiles<<<gt, TC_THREADS, smem, st>>>(rays, rowc, cfeat, Bg, Bc,
                                              gcore, ccore, rg, rc, sh, sm, P);
   e = cudaGetLastError();

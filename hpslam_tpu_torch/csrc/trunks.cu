@@ -14,7 +14,8 @@
 // with colour, the Softplus(beta=100) colour trunk; writes occ (n,) and
 // raw rgb (n, 3) (zero without colour) and nothing else: the Pallas
 // forward keeps every activation in VMEM, and #5 recomputes the forward.
-// Geometry-only stages ask for the geometry trunk's shared memory alone
+// Its samples run tc_trunks_fwd_tile of nicer_trunk_tc.cuh, which the
+// composite forward (kernel #6, composite.cu) runs too.  Geometry-only stages ask for the geometry trunk's shared memory alone
 // (~81 KB against ~210 KB with colour), so two blocks fit an SM.
 //
 // Backward (kernel #5): the forward recomputed (as the Pallas kernel
@@ -36,22 +37,6 @@
 struct TShape {
   int n, C, with_color, need_dp;
 };
-
-// Cs (TC_TM x C) from a sample-major (n, C) feature and, if Cg is given,
-// the feature rows.
-__device__ void tile_feat(const float* __restrict__ c, int C, float* Cs,
-                          float* Cg, long m0, long M) {
-  for (int e = threadIdx.x; e < TC_TM * C; e += blockDim.x) {
-    const int r = e / C, ch = e % C;
-    const long m = m0 + r;
-    float v = 0.0f;
-    if (m < M) {
-      v = c[m * C + ch];
-      if (Cg) Cg[(long)ch * M + m] = v;
-    }
-    Cs[r * (C + 4) + ch] = v;
-  }
-}
 
 // Gs (TC_TM x 8, zero beyond nout) from a sample-major (n, nout) cotangent
 // and, if Gg is given, the G rows.
@@ -87,35 +72,9 @@ __global__ void __launch_bounds__(TC_THREADS, 2)
                  TcSmem sm, float* __restrict__ occ,
                  float* __restrict__ rgb) {
   extern __shared__ float4 tc_raw[];
-  const TcTile T = tc_tile((float*)tc_raw, sm);
-  const Rows none = {};
-  const long M = sh.n;
-  const long m0 = (long)blockIdx.x * TC_TM;
-  const int C = sh.C;
-  for (int e = threadIdx.x; e < TC_TM * 3; e += blockDim.x)
-    T.Ps[e] = m0 + e / 3 < M ? p[3 * m0 + e] : 0.0f;
-  tile_feat(cg, C, T.Cs, nullptr, m0, M);
-  __syncthreads();
-  const int embp_g = round8(gw.emb);
-  tile_embed(T.Ps, Bg, false, gw.emb, embp_g, T.Es, nullptr, m0, M);
-  __syncthreads();
-  tc_trunk_fwd(gw, none, 0, T, embp_g, m0, M, false, true);
-  for (int r = threadIdx.x; r < TC_TM; r += blockDim.x)
-    if (m0 + r < M) occ[m0 + r] = T.Gs[r * TC_GLD];
-  if (sh.with_color) {
-    // Cs, Es and Gs are rewritten only after the syncs that follow
-    // (tc_trunk_fwd's layer staging), so the occ reads above are done
-    tile_feat(cc, C, T.Cs, nullptr, m0, M);
-    const int embp_c = round8(cw.emb);
-    tile_embed(T.Ps, Bc, true, cw.emb, embp_c, T.Es, nullptr, m0, M);
-    __syncthreads();
-    tc_trunk_fwd(cw, none, 1, T, embp_c, m0, M, false, true);
-  }
-  for (int e = threadIdx.x; e < TC_TM * 3; e += blockDim.x) {
-    const int r = e / 3, c = e % 3;
-    if (m0 + r < M)
-      rgb[3 * (m0 + r) + c] = sh.with_color ? T.Gs[r * TC_GLD + c] : 0.0f;
-  }
+  tc_trunks_fwd_tile(p, cg, cc, Bg, Bc, gw, cw, sh.C, sh.with_color != 0,
+                     false, tc_tile((float*)tc_raw, sm),
+                     (long)blockIdx.x * TC_TM, sh.n, occ, rgb);
 }
 
 // Kernel #5: a tile of TC_TM samples per block.  Forward recomputed, both
@@ -182,22 +141,14 @@ extern "C" long hp_trunks_scratch_floats(int n, int C, int emb_g, int hid_g,
   return rows * (long)n;
 }
 
-// Dynamic shared memory (bytes) of one tile kernel.
-static int trunks_smem(int C, int emb_g, int hid_g, int emb_c, int hid_c,
-                       int with_color, TcSmem* sm) {
-  *sm = tc_smem(round8(emb_g), hid_g, round8(emb_c), hid_c, C,
-                with_color != 0);
-  return sm->total * (int)sizeof(float);
-}
-
 // Blocks of kernel #4 (backward == 0) or #5 that fit one SM at these
 // widths, from the CUDA occupancy calculator; negative: a CUDA error.
 extern "C" int hp_trunks_blocks_per_sm(int C, int emb_g, int hid_g,
                                        int emb_c, int hid_c, int with_color,
                                        int backward) {
   TcSmem sm;
-  const int smem = trunks_smem(C, emb_g, hid_g, emb_c, hid_c, with_color,
-                               &sm);
+  const int smem = tc_trunks_smem(C, emb_g, hid_g, emb_c, hid_c, with_color,
+                                  &sm);
   int blocks = 0, rc;
   if (backward) {
     rc = tc_smem_attr(tr_bwd_tiles, smem);
@@ -246,8 +197,8 @@ extern "C" int hp_trunks(
   sh.n = n; sh.C = C; sh.with_color = with_color;
   sh.need_dp = backward && need_dp;
   TcSmem sm;
-  const int smem = trunks_smem(C, emb_g, hid_g, emb_c, hid_c, with_color,
-                               &sm);
+  const int smem = tc_trunks_smem(C, emb_g, hid_g, emb_c, hid_c, with_color,
+                                  &sm);
   if (!backward) {
     const int rc0 = tc_smem_attr(tr_fwd_tiles, smem);
     if (rc0) return rc0;

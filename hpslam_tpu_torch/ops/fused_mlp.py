@@ -21,11 +21,12 @@ CUDA tensors, launches its kernel or raises.
   ``fused_trunks_plain`` and ``fused_trunks_plain_bwd``.
 * ``nicer_fused_trackloss`` (reference :1829): the tracker's
   pose-differentiable render, kernels #8 and #9 (``csrc/trackloss.cu``);
-  #9's forward recompute and trunk backwards run on the tensor cores, #8
-  still on the scalar trunk code.  Plain version: ``trackloss_plain``,
+  both run their trunks on the tensor cores, #9's forward recompute the
+  same tile pass as #8.  Plain version: ``trackloss_plain``,
   differentiated by autograd.
 * ``nicer_fused_composite`` (reference :825): both trunks and the
-  occupancy compositor per ray, kernel #6 (``csrc/composite.cu``) forward;
+  occupancy compositor per ray, kernel #6 (``csrc/composite.cu``) forward,
+  its trunks on the tensor cores in #4's tile pass;
   its backward is the reference's ``_ncomp_bwd``: the compositor backward
   written out (``comp_bwd``) on the saved occ / rgb, then the trunk
   backward (kernel #5).  The union mapping path runs it under a device
@@ -625,12 +626,11 @@ def launch_trackloss(rays, aff, rowc, cfeat, geo_flat, col_flat, Bs,
     dev = rays.device
     hid_g, hid_c = geo_flat[0].shape[1], col_flat[0].shape[1]
     emb_g, emb_c = Bg.shape[1], 2 * Bc.shape[1]
-    if backward:
-        _check_tc_widths("trackloss", hid_g, hid_c, C)
+    _check_tc_widths("trackloss", hid_g, hid_c, C)
     lib = _cuda.lib("trackloss")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    n_scr = lib.hp_trackloss_scratch_floats(n, S, C, emb_g, hid_g, emb_c,
-                                            hid_c, n_blocks, int(backward))
+    n_scr = lib.hp_trackloss_scratch_floats(n, S, hid_g, hid_c, n_blocks,
+                                            int(backward))
     scratch = torch.empty((n_scr,), dtype=torch.float32, device=dev)
 
     def new(*shape):
@@ -839,14 +839,17 @@ def launch_composite(p, c_geo, c_col, z, pm, Bs, geo_flat, col_flat,
     n = n_r * S
     C = c_geo.shape[1]
     dev = p.device
-    lib = _cuda.lib("composite")
-    stream = torch.cuda.current_stream(dev).cuda_stream
     hid_g, emb_g = geo_flat[0].shape[1], Bg.shape[1]
     hid_c = col_flat[0].shape[1] if with_color else hid_g
     emb_c = 2 * Bc.shape[1] if with_color else emb_g
+    if not backward:
+        _check_tc_widths("composite", hid_g, hid_c, C)
+    lib = _cuda.lib("composite")
+    stream = torch.cuda.current_stream(dev).cuda_stream
     wgrads = bool(backward and with_color and need_wgrads)
     n_scr = lib.hp_composite_scratch_floats(n, C, emb_g, hid_g, emb_c, hid_c,
-                                            n_blocks, int(with_color))
+                                            n_blocks, int(with_color),
+                                            int(backward))
     scratch = torch.empty((n_scr,), dtype=torch.float32, device=dev)
 
     def new(*shape):

@@ -210,7 +210,8 @@ def test_trackloss_kernels_match_plain(cuda, use_affine, wmode, n):
     """Kernels #8 (forward) and #9 (backward) under autograd against
     trackloss_plain differentiated by autograd, at the full model width
     (chip_smoke.py's inputs, fewer rays; 501 rays: 2505 samples, not a
-    multiple of #9's 64-sample tile).  Two runs of #9 agree bit for bit."""
+    multiple of the 64-sample tile).  Two runs of #8 and of #9 agree bit
+    for bit, and so does #8's bare launcher."""
     import chip_smoke
     I = chip_smoke.trackloss_inputs(torch, cuda, n=n)
     mcfg, S, K = I["mcfg"], I["S"], I["K"]
@@ -220,7 +221,7 @@ def test_trackloss_kernels_match_plain(cuda, use_affine, wmode, n):
     static = (mcfg.n_blocks, mcfg.skip, S, K, mcfg.c_dim, 0.1, wmode,
               use_affine, not use_affine)
     outs = []
-    before = _cuda.LAUNCHES["trackloss_bwd"]
+    before = dict(_cuda.LAUNCHES)
     for fn in (FM.nicer_fused_trackloss, FM.nicer_fused_trackloss,
                FM.trackloss_plain):
         r = rays.clone().requires_grad_()
@@ -230,9 +231,15 @@ def test_trackloss_kernels_match_plain(cuda, use_affine, wmode, n):
         outs.append((d.detach(), v.detach(), c.detach(), r.grad,
                      a.grad if a.grad is not None else torch.zeros_like(a)))
     torch.cuda.synchronize()
-    assert _cuda.LAUNCHES["trackloss_bwd"] == before + 2
+    for name in ("trackloss_fwd", "trackloss_bwd"):
+        assert _cuda.LAUNCHES[name] == before.get(name, 0) + 2
     (dk, vk, ck, drk, dak), again, (dp_, vp, cp, drp, dap) = outs
     assert all(torch.equal(x, y) for x, y in zip(outs[0], again))
+    kw = dict(zip(("n_blocks", "skip", "S", "K", "C", "coef", "wmode",
+                   "use_affine", "sigmoid_plain"), static))
+    bare = FM.launch_trackloss(rays, aff, rowc, cfeat, geo, col, Bs,
+                               backward=False, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(bare, (dk, vk, ck)))
     for name, x, y in (("depth", dk, dp_), ("var", vk, vp),
                        ("color", ck, cp)):
         _values_close(x, y, name)
@@ -249,21 +256,27 @@ def test_trackloss_kernels_match_plain(cuda, use_affine, wmode, n):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("with_color,sigmoid_rgb", [(True, True),
-                                                    (True, False),
-                                                    (False, False)])
-def test_composite_kernels_match_plain(cuda, with_color, sigmoid_rgb):
+@pytest.mark.parametrize("with_color,sigmoid_rgb,n_r", [
+    (True, True, 600), (True, False, 600), (False, False, 600),
+    (True, True, 601)])
+def test_composite_kernels_match_plain(cuda, with_color, sigmoid_rgb, n_r):
     """Kernel #6 through nicer_fused_composite under autograd (its backward
     on kernel #5) against composite_plain under autograd, and kernel #7
     through fused_comp_bwd against composite_bwd_plain, at the full model
-    width (chip_smoke.py's inputs, fewer rays)."""
+    width (chip_smoke.py's inputs, fewer rays; 601 rays: 3005 samples, not
+    a multiple of #6's 64-sample tile).  Two runs of the wrapper agree bit
+    for bit, and so does #6's bare launcher."""
     import chip_smoke
-    I = chip_smoke.composite_inputs(torch, cuda, n_r=600)
+    I = chip_smoke.composite_inputs(torch, cuda, n_r=n_r)
     before = dict(_cuda.LAUNCHES)
     k = chip_smoke.composite_autograd(I, "wrapper", with_color, sigmoid_rgb)
     assert _cuda.LAUNCHES["composite_fwd"] == \
         before.get("composite_fwd", 0) + 1
     assert _cuda.LAUNCHES["trunks_bwd"] == before.get("trunks_bwd", 0) + 1
+    again = chip_smoke.composite_autograd(I, "wrapper", with_color,
+                                          sigmoid_rgb)
+    assert all(torch.equal(a, b) for a, b in
+               zip((*k[:5], *k[5]), (*again[:5], *again[5])))
     p = chip_smoke.composite_autograd(I, "plain", with_color, sigmoid_rgb)
     mcfg, S = I["mcfg"], I["S"]
     args = (I["p"], I["cg"], I["cc"] if with_color else None, I["z"],
@@ -274,7 +287,10 @@ def test_composite_kernels_match_plain(cuda, with_color, sigmoid_rgb):
     assert _cuda.LAUNCHES["composite_bwd"] == \
         before.get("composite_bwd", 0) + 1
     p7 = FM.composite_bwd_plain(*args, *rest)
+    bare = FM.launch_composite(*args, *rest[3:7], chip_smoke.COMP_COEF,
+                               sigmoid_rgb)
     torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(bare[:3], k[:3]))
     for name, a, b in (("depth", k[0], p[0]), ("var", k[1], p[1]),
                        ("color", k[2], p[2])):
         _values_close(a, b, name)

@@ -1,11 +1,13 @@
-"""The 3xTF32 arithmetic of the tensor-core trunk kernels (#3, #4, #5 and
-#9, hpslam_tpu_torch/csrc/nicer_trunk_tc.cuh), emulated in plain PyTorch on
-the CPU, against the port's f32 plain trunk and the reference's
+"""The 3xTF32 arithmetic of the tensor-core trunk kernels (#3, #4, #5, #6,
+#8 and #9, hpslam_tpu_torch/csrc/nicer_trunk_tc.cuh), emulated in plain
+PyTorch on the CPU, against the port's f32 plain trunk and the reference's
 _trunk_fwd_block / _trunk_bwd_block (hpslam_tpu/ops/fused_mlp.py) at
-exact=True; and the tracker-loss backward (#9) as a whole: both trunks
+exact=True; the tracker-loss backward (#9) as a whole: both trunks
 through the emulated products, then the embedding and weight routes of
 d(point) and d(rays), held to chip_smoke.check_drays's rule against
-trackloss_plain in float64.
+trackloss_plain in float64; and the composite and tracker-loss forwards
+(#6, #8) as a whole, held to the rule that chip_smoke.py's composite and
+trackloss phases apply against composite_plain and trackloss_plain.
 
 The kernels take every trunk and weight-gradient product on TF32 tensor
 cores at f32 accuracy: each f32 operand x is split into hi = tf32(x) and
@@ -184,11 +186,12 @@ def test_3xtf32_trunk_matches_f32_references(trunk):
 
 
 @pytest.mark.parametrize("kernel", ["maploss", "trunks", "trunks_fwd",
-                                    "trackloss"])
+                                    "trackloss", "trackloss_fwd",
+                                    "composite_fwd"])
 def test_tensor_core_kernels_reject_widths_off_the_mma_grid(kernel):
-    """Kernels #3, #5, #4 and #9 tile every width by the mma's 8: their
-    launchers refuse a hidden width that is not a multiple of 8 before
-    building or launching anything."""
+    """Kernels #3, #5, #4, #9, #8 and #6 tile every width by the mma's 8:
+    their launchers refuse a hidden width that is not a multiple of 8
+    before building or launching anything."""
     n, C, nb = 4, 8, 2
     geo = [torch.zeros(s) for s in [(16, 12), (12,), (28, 12), (12,)]
            + [(C, 12), (12,)] * nb + [(12, 1), (1,)]]
@@ -213,14 +216,23 @@ def test_tensor_core_kernels_reject_widths_off_the_mma_grid(kernel):
             tFM.launch_trunks(torch.zeros((n, 3)), torch.zeros((n, C)),
                               None, (Bs[0], None), geo, [], nb, 0, False,
                               backward=False)
+        elif kernel == "composite_fwd":
+            S = 2
+            tFM.launch_composite(torch.zeros((n * S, 3)),
+                                 torch.zeros((n * S, C)),
+                                 torch.zeros((n * S, C)), torch.zeros((n, S)),
+                                 torch.ones((n, S)), Bs, geo, col, nb, 0,
+                                 True, S, 0.1, True, backward=False)
         else:
             S, K = 2, 2
+            bwd = kernel == "trackloss"
             tFM.launch_trackloss(
                 torch.zeros((n, 6)), torch.zeros((n, 12)),
                 torch.zeros((n, 2 * S + 6 + 3 * S * K)),
                 torch.zeros((n, S * K * 2 * C)), geo, col, Bs, nb, 0, S, K,
-                C, 0.1, 0, False, True, backward=True,
-                g_depth=torch.zeros(n), g_color=torch.zeros((n, 3)))
+                C, 0.1, 0, False, True, backward=bwd,
+                g_depth=torch.zeros(n) if bwd else None,
+                g_color=torch.zeros((n, 3)) if bwd else None)
 
 
 # ---------------------------------------------------------------------------
@@ -238,30 +250,36 @@ def _chip_smoke():
     return mod
 
 
+def _core(rng, nk, hid, nout, scale, cos, nb, skip, C):
+    """One trunk's weights in flatten_core order and its Fourier B, at the
+    model's scale, made with numpy."""
+    emb = 2 * nk if cos else nk
+    ins = [emb if i == 0 else (emb + hid if i == skip + 1 else hid)
+           for i in range(nb)]
+    flat = []
+    for k in ins:
+        flat += [rng.normal(size=(k, hid)) / math.sqrt(k),
+                 rng.normal(0.0, 0.05, hid)]
+    for _ in range(nb):
+        flat += [rng.normal(size=(C, hid)) / math.sqrt(C),
+                 rng.normal(0.0, 0.05, hid)]
+    flat += [rng.normal(size=(hid, nout)) / math.sqrt(hid),
+             rng.normal(0.0, 0.05, nout)]
+    return flat, rng.normal(0.0, scale, (3, nk))
+
+
+def _t(x):
+    return torch.tensor(np.asarray(x, np.float32))
+
+
 def _track_inputs(seed=5, n=N_RAYS, S=5, K=8, C=32, nb=5, skip=2, r=0.3):
     """The tracker's operating point as chip_smoke.trackloss_inputs builds
     it (rays toward a wall at ~2 m, K cached neighbours 1e-2 to 1.2 r away,
     one padded slot at 1e6, `has` from those distances), at the model's
     full widths, made with numpy."""
     rng = np.random.default_rng(seed)
-
-    def core(nk, hid, nout, scale, cos):
-        emb = 2 * nk if cos else nk
-        ins = [emb if i == 0 else (emb + hid if i == skip + 1 else hid)
-               for i in range(nb)]
-        flat = []
-        for k in ins:
-            flat += [rng.normal(size=(k, hid)) / math.sqrt(k),
-                     rng.normal(0.0, 0.05, hid)]
-        for _ in range(nb):
-            flat += [rng.normal(size=(C, hid)) / math.sqrt(C),
-                     rng.normal(0.0, 0.05, hid)]
-        flat += [rng.normal(size=(hid, nout)) / math.sqrt(hid),
-                 rng.normal(0.0, 0.05, nout)]
-        return flat, rng.normal(0.0, scale, (3, nk))
-
-    geo, Bg = core(93, 32, 1, 25.0, False)
-    col, Bc = core(20, 128, 3, 32.0, True)
+    geo, Bg = _core(rng, 93, 32, 1, 25.0, False, nb, skip, C)
+    col, Bc = _core(rng, 20, 128, 3, 32.0, True, nb, skip, C)
     ro = 0.05 * rng.normal(size=(n, 3))
     rd = np.concatenate([rng.uniform(-0.5, 0.5, (n, 2)), -np.ones((n, 1))],
                         1)
@@ -279,20 +297,18 @@ def _track_inputs(seed=5, n=N_RAYS, S=5, K=8, C=32, nb=5, skip=2, r=0.3):
     aff = np.concatenate([np.tile(np.eye(3).reshape(1, 9), (n, 1)),
                           np.zeros((n, 3))], 1) \
         + 0.05 * rng.normal(size=(n, 12))
-
-    def t(x):
-        return torch.tensor(np.asarray(x, np.float32))
-    return dict(rays=t(np.concatenate([ro, rd], 1)), aff=t(aff),
-                rowc=t(rowc), cfeat=t(0.1 * rng.normal(size=(n, S * K * 2 * C))),
-                g_depth=t(rng.normal(size=n)), g_color=t(rng.normal(
-                    size=(n, 3))), geo=[t(w) for w in geo],
-                col=[t(w) for w in col], Bs=(t(Bg), t(Bc)),
+    return dict(rays=_t(np.concatenate([ro, rd], 1)), aff=_t(aff),
+                rowc=_t(rowc),
+                cfeat=_t(0.1 * rng.normal(size=(n, S * K * 2 * C))),
+                g_depth=_t(rng.normal(size=n)), g_color=_t(rng.normal(
+                    size=(n, 3))), geo=[_t(w) for w in geo],
+                col=[_t(w) for w in col], Bs=(_t(Bg), _t(Bc)),
                 static=(nb, skip, S, K, C))
 
 
 def _tail(occ, raw, aff, has, z, coef, use_affine, sigmoid_plain):
     """trackloss_plain's colour tail and compositor on (n, S) occ and
-    (n, S, 3) raw: (depth, color)."""
+    (n, S, 3) raw: (depth, color, var)."""
     if use_affine:
         a = aff[:, None, :]
         rgb = torch.sigmoid(torch.stack([
@@ -308,18 +324,18 @@ def _tail(occ, raw, aff, has, z, coef, use_affine, sigmoid_plain):
         t_run = t_run * ((1.0 - alpha[:, s]) + 1e-10)
     wc = alpha * torch.stack(ts, 1)
     wsum = torch.sum(wc, 1) + 1e-10
-    return (torch.sum(wc * z, 1) / wsum,
-            torch.sum(wc[..., None] * rgb, 1) / wsum[:, None])
+    depth = torch.sum(wc * z, 1) / wsum
+    return (depth, torch.sum(wc[..., None] * rgb, 1) / wsum[:, None],
+            torch.sum(wc * torch.square(z - depth[:, None]), 1))
 
 
-def emulated_trackloss_drays(I, static, mm):
-    """d rays of kernel #9 with both trunks' products through ``mm``: the
-    forward recomputed, the compositor and tail backward (scalar f32 in the
-    kernel), both trunk backwards with the embedding cotangents, then
-    d(point) = embedding route + weight route (the quotient rule through
-    w / max(sum w, 1e-12), masked by `has` and d^2 <= r^2), then d(o) and
-    d(d) summed over the samples."""
-    nb, skip, S, K, C, coef, wmode, use_affine, sigmoid_plain = static
+def _track_samples(I, static):
+    """What both tracker-loss kernels compute for the samples before the
+    trunks: the points, their neighbours' distances and weights inside
+    r^2, the mixed features (zero unless `has`), the Fourier embeddings,
+    and per trunk (embedding, feature, weights, activation code, outputs)."""
+    nb, skip, S, K, C = static[:5]
+    wmode = static[6]
     rays, rowc, Bg, Bc = I["rays"], I["rowc"], I["Bs"][0], I["Bs"][1]
     n = rays.shape[0]
     o = tFM.trackrow_offsets(S, K)
@@ -342,13 +358,38 @@ def emulated_trackloss_drays(I, static, mm):
     p = pts.reshape(n * S, 3)
     eg = fourier_features(p, Bg, concat_cos=False)
     ec = fourier_features(p, Bc, concat_cos=True)
-    trunks = ((eg, c[:, :C], I["geo"], 0, 1), (ec, c[:, C:], I["col"], 1, 3))
-    outs = [emulated_trunk(e, cc, flat, torch.zeros((n * S, nout)), nb, skip,
-                           code, mm)[0] for e, cc, flat, code, nout in trunks]
+    return dict(n=n, z=z, has=has, cpos=cpos, pts=pts, dd=dd, inr=inr, w=w,
+                wsafe=wsafe, f=f, p=p,
+                trunks=((eg, c[:, :C], I["geo"], 0, 1),
+                        (ec, c[:, C:], I["col"], 1, 3)))
+
+
+def _trunk_outputs(trunks, nb, skip, mm):
+    """Each trunk's output with its products through ``mm``."""
+    return [emulated_trunk(e, cc, flat, torch.zeros((e.shape[0], nout)), nb,
+                           skip, code, mm)[0]
+            for e, cc, flat, code, nout in trunks]
+
+
+def emulated_trackloss_drays(I, static, mm):
+    """d rays of kernel #9 with both trunks' products through ``mm``: the
+    forward recomputed, the compositor and tail backward (scalar f32 in the
+    kernel), both trunk backwards with the embedding cotangents, then
+    d(point) = embedding route + weight route (the quotient rule through
+    w / max(sum w, 1e-12), masked by `has` and d^2 <= r^2), then d(o) and
+    d(d) summed over the samples."""
+    nb, skip, S, K, C, coef, wmode, use_affine, sigmoid_plain = static
+    T = _track_samples(I, static)
+    n, z, has, cpos, pts, dd, inr, w, wsafe, f, p, trunks = (
+        T[k] for k in ("n", "z", "has", "cpos", "pts", "dd", "inr", "w",
+                       "wsafe", "f", "p", "trunks"))
+    Bg, Bc = I["Bs"]
+    outs = _trunk_outputs(trunks, nb, skip, mm)
     occ = outs[0][:, 0].detach().requires_grad_()
     raw = outs[1].detach().requires_grad_()
-    depth, color = _tail(occ.reshape(n, S), raw.reshape(n, S, 3), I["aff"],
-                         has, z, coef, use_affine, sigmoid_plain)
+    depth, color, _ = _tail(occ.reshape(n, S), raw.reshape(n, S, 3),
+                            I["aff"], has, z, coef, use_affine,
+                            sigmoid_plain)
     g_occ, g_raw = torch.autograd.grad([depth, color], [occ, raw],
                                        [I["g_depth"], I["g_color"]])
     (_, d_eg, d_cg, _), (_, d_ec, d_cc, _) = [
@@ -399,3 +440,98 @@ def test_3xtf32_trackloss_drays_meets_check_drays(use_affine, wmode):
     with pytest.raises(AssertionError, match="trackloss drays"):
         cs.check_drays(I, static, emulated_trackloss_drays(I, static, mm1),
                        r.grad)
+
+
+# ---------------------------------------------------------------------------
+# Kernels #6 and #8 as a whole
+
+
+def _comp_inputs(seed=7, n=N_RAYS, S=5, C=32, nb=5, skip=2):
+    """The mesh mapping path's samples as chip_smoke.composite_inputs
+    builds them (rays from the origin, samples 1-3 m along them, a tenth
+    padded), at the model's full widths, made with numpy."""
+    rng = np.random.default_rng(seed)
+    geo, Bg = _core(rng, 93, 32, 1, 25.0, False, nb, skip, C)
+    col, Bc = _core(rng, 20, 128, 3, 32.0, True, nb, skip, C)
+    rd = rng.normal(size=(n, 3))
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    z = rng.uniform(1.0, 3.0, (n, 1)) * np.linspace(0.96, 1.04, S)
+    return dict(p=_t((rd[:, None] * z[..., None]).reshape(n * S, 3)),
+                z=_t(z), pm=_t(rng.uniform(size=(n, S)) > 0.1),
+                cg=_t(0.1 * rng.normal(size=(n * S, C))),
+                cc=_t(0.1 * rng.normal(size=(n * S, C))),
+                geo=[_t(w) for w in geo], col=[_t(w) for w in col],
+                Bs=(_t(Bg), _t(Bc)), nb=nb, skip=skip, S=S)
+
+
+def emulated_composite(I, with_color, sigmoid_rgb, mm):
+    """Kernel #6's (depth, var, color) with both trunks' products through
+    ``mm`` (the tile pass), then the compositor (cp_rays, scalar f32)."""
+    nb, skip, S = I["nb"], I["skip"], I["S"]
+    p, (Bg, Bc) = I["p"], I["Bs"]
+    trunks = [(fourier_features(p, Bg, concat_cos=False), I["cg"], I["geo"],
+               0, 1)]
+    if with_color:
+        trunks.append((fourier_features(p, Bc, concat_cos=True), I["cc"],
+                       I["col"], 1, 3))
+    outs = _trunk_outputs(trunks, nb, skip, mm)
+    rgb = torch.zeros((p.shape[0], 3))
+    if with_color:
+        rgb = torch.sigmoid(outs[1]) if sigmoid_rgb else outs[1]
+    n = I["z"].shape[0]
+    d, v, c, _ = tFM.comp_fwd(outs[0][:, 0].reshape(n, S),
+                              rgb.reshape(n, S, 3), I["z"], I["pm"] > 0.5,
+                              0.1)
+    return d, v, c
+
+
+def emulated_trackloss(I, static, mm):
+    """Kernel #8's (depth, var, color) with both trunks' products through
+    ``mm`` (the tile pass), then the colour tail and compositor (tl_rays,
+    scalar f32)."""
+    nb, skip, S, K, C, coef, wmode, use_affine, sigmoid_plain = static
+    T = _track_samples(I, static)
+    occ, raw = _trunk_outputs(T["trunks"], nb, skip, mm)
+    n = T["n"]
+    d, c, v = _tail(occ.reshape(n, S), raw.reshape(n, S, 3), I["aff"],
+                    T["has"], T["z"], coef, use_affine, sigmoid_plain)
+    return d, v, c
+
+
+@pytest.mark.parametrize("kernel,case", [
+    ("composite_fwd", "colour, sigmoid"), ("composite_fwd", "colour, raw"),
+    ("composite_fwd", "geometry only"), ("trackloss_fwd", "sigmoid"),
+    ("trackloss_fwd", "affine"), ("trackloss_fwd", "exp weights")])
+def test_3xtf32_forward_meets_smoke_tolerances(kernel, case):
+    """Kernels #6 and #8 with 3xTF32 trunk products, at the full model
+    width on 300 rays x 5 samples: depth, var and colour against the f32
+    plain version (composite_plain, trackloss_plain) by the rule the
+    smoke's composite and trackloss phases apply (chip_smoke.compare_grads:
+    relative Frobenius distance 1e-4, and 1e-3 of the largest magnitude
+    entry by entry for all but 1e-4 of the entries)."""
+    cs = _chip_smoke()
+    if kernel == "composite_fwd":
+        I = _comp_inputs()
+        with_color = case != "geometry only"
+        sigmoid_rgb = case == "colour, sigmoid"
+        k = emulated_composite(I, with_color, sigmoid_rgb, mm3)
+        p = tFM.composite_plain(
+            I["p"], I["cg"], I["cc"] if with_color else None, I["z"],
+            I["pm"], I["Bs"], I["geo"], I["col"] if with_color else [],
+            I["nb"], I["skip"], with_color, I["S"], 0.1, sigmoid_rgb)[:3]
+    else:
+        I = _track_inputs()
+        use_affine = case == "affine"
+        static = I["static"] + (0.1, int(case == "exp weights"), use_affine,
+                                not use_affine)
+        k = emulated_trackloss(I, static, mm3)
+        p = tFM.trackloss_plain(I["rays"], I["aff"], I["rowc"], I["cfeat"],
+                                I["geo"], I["col"], I["Bs"], *static)
+        with_color = True
+    readings = {}
+    for name, a, b in zip(("depth", "var", "color"), k, p):
+        if name == "color" and not with_color:
+            assert not a.any()
+            continue
+        readings[name] = cs.compare_grads(name, a, b, kernel)
+    print(kernel, case, readings)
