@@ -9,7 +9,11 @@ Phases, each printed as one JSON line when it starts and when it ends:
   device   nvidia-smi's name and power limit, torch's device name
   build    nvcc builds every kernel source (one nvcc per source, in parallel)
   topk     row-top-k kernel against its plain version, bitwise, at the main
-           path's shapes; kernel / plain / torch.topk times
+           path's shapes, the insertion's tile selection (k = 32), a k above
+           32 (the k-pass kernel) and a ragged C; the kernel's device time
+           per launch (torch.profiler) with the L2 cache flushed between
+           launches and warm, the wrapper's time, the plain version's and
+           torch.topk's; blocks per SM
   maploss  mapping-loss kernel pair against the plain version (autograd)
            at bench.py's operating point (10000 rays) and the SLAM run's
            (4000 rays), a ragged n (4001 rays) and without the weight
@@ -20,8 +24,9 @@ Phases, each printed as one JSON line when it starts and when it ends:
            position cotangent, a ragged n (20003 samples) with colour and
            geometry only, and without the weight gradients; each twice,
            bitwise; kernel / plain times (#4 geometry only beside colour);
-           blocks per SM of the tile kernels; a digest of #4's outputs
-           (the same bits on any tree whose #4 computes the same)
+           blocks per SM of the tile kernels; digests of #4's and #5's
+           outputs (the same bits on any tree whose kernels compute the
+           same)
   trackloss  fused tracker-render kernel pair against trackloss_plain
            (autograd) at the tracker's 2000 rays: sigmoid tail, exposure
            affine, exp weighting, and a ragged 2001 rays; #8-9 twice,
@@ -34,9 +39,11 @@ Phases, each printed as one JSON line when it starts and when it ends:
            replaces (composite_bwd_plain), at the mesh mapping path's shape
            (4000 rays x 5 samples): colour with the sigmoid tail, colour
            raw (encode_exposure), geometry only, and a ragged 601 rays;
-           the wrapper twice, bitwise; kernel / plain times, #6's device
-           time per pass, blocks per SM of its tile pass and the peak
-           device memory of one #6 launch
+           the wrapper and #7 twice, bitwise; kernel / plain times, #6's
+           and #7's device time per pass, #7 beside the composition the
+           path runs (the compositor backward in tensor ops, then #5),
+           blocks per SM of both tile passes and the device memory of one
+           #6 and one #7 launch
   slam     the port's CLI entry point on configs/Synthetic/synth_tpu.yaml,
            cut to 10 frames, output in a temporary directory; ATE, per-frame
            times and every kernel's launches during the run (with
@@ -81,6 +88,7 @@ PHASES = ["device", "build", "topk", "maploss", "trunks", "trackloss",
 
 # H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
+L2_BYTES = 50 * 2 ** 20
 F32_FLOPS = 67e12
 # TF32 tensor cores (495 TFLOP/s dense) at f32 accuracy: 3xTF32 takes
 # three passes per product
@@ -169,6 +177,10 @@ def ptxas_kernels(log: str) -> dict:
                       r"for) '?_Z(\d+)(\w+)", ln)
         if m:
             name = m.group(2)[:int(m.group(1))]
+            targs = re.match(r"I((?:Li\d+E)+)E", m.group(2)[int(m.group(1)):])
+            if targs:        # a template instantiation: name<K,G>
+                name += "<" + ",".join(re.findall(r"Li(\d+)E",
+                                                  targs.group(1))) + ">"
             out.setdefault(name, {})
             continue
         if name is None:
@@ -204,7 +216,9 @@ def run_build(out_dir: str) -> dict:
             "spilling_kernels": sorted(k for k, v in kernels.items()
                                        if v.get("spill_bytes")),
             "tile_kernels": {k: v for k, v in sorted(kernels.items())
-                             if "tiles" in k}}
+                             if "tiles" in k},
+            "topk_kernels": {k: v for k, v in sorted(kernels.items())
+                             if "topk" in k}}
 
 
 def topk_cases(torch, dev):
@@ -212,7 +226,11 @@ def topk_cases(torch, dev):
     (4096 x 12 tiles x 128, k=8, id payload), narrowed tile selection
     (4096 x 128 bins, k=12, bin->tile payload), insertion 1-NN (ragged 2047
     rows x 32 tiles x 128, k=1), union ranking (14000 x 40, k=8, no
-    payload).  Rows with exact ties and BIG sentinels are included."""
+    payload), the insertion's tile selection (state.add_points: probe 32
+    over mapping.pixels_adding 2000 rays, 512 tiles narrowed to 128 bins,
+    bin->tile payload); then a k above 32 (the k-pass kernel, which no
+    path launches) and a ragged C (not a multiple of 4: single-column
+    loads).  Rows with exact ties and BIG sentinels are included."""
     g = torch.Generator(device=dev).manual_seed(0)
     BIG = 1e10
 
@@ -233,16 +251,32 @@ def topk_cases(torch, dev):
     for name, n, C, k, pay in [("candidates", 4096, 12 * 128, 8, True),
                                ("tile_select", 4096, 128, 12, True),
                                ("insertion", 2047, 32 * 128, 1, True),
-                               ("union_rank", 14000, 40, 8, False)]:
+                               ("union_rank", 14000, 40, 8, False),
+                               ("insert_tiles", 2000, 128, 32, True),
+                               ("k_above_32", 4096, 256, 48, True),
+                               ("ragged_C", 4096, 1531, 8, True)]:
         x, p = mk(n, C, pay)
         cases.append((name, x, p, k))
     return cases
 
 
 def run_topk(results: dict) -> dict:
+    """Kernel #1 against topk_rows_plain, bitwise, at each case of
+    topk_cases.  Times per launch: the kernel's device time
+    (torch.profiler) with the L2 cache flushed between launches (each row
+    read from device memory, as the path reads a freshly written d2) and
+    warm (back to back: the rows partly in L2); the wrapper's time (host
+    work included, back to back between events); the plain version's and
+    torch.topk's.  The bound's share is taken of the flushed device
+    time."""
     import torch
+    from hpslam_tpu_torch import _cuda
     from hpslam_tpu_torch.ops import knn as K
     dev = torch.device("cuda")
+    # absent from trees older than the one-pass kernel (parent runs)
+    blocks_per_sm = getattr(_cuda.lib("topk_rows"), "hp_topk_blocks_per_sm",
+                            None)
+    flush = torch.empty((2 * L2_BYTES // 4,), device=dev)
     rows = []
     worst = 0.0
     for name, x, p, k in topk_cases(torch, dev):
@@ -252,7 +286,24 @@ def run_topk(results: dict) -> dict:
         if not (torch.equal(d0, d1) and torch.equal(v0, v1)):
             bad = int((d0 != d1).sum() + (v0 != v1).sum())
             raise AssertionError(f"topk {name}: {bad} elements differ")
-        ms = cuda_time_ms(lambda: K.topk_rows(x, p, k))
+
+        def call():
+            return K.topk_rows(x, p, k)
+
+        def device_ms(**kw):
+            # the profiler drops some events of such short sessions: the
+            # mean over the launches it recorded, if at least half
+            for _ in range(3):
+                got = [v for kname, v in kernel_launches(
+                    call, iters=20, **kw).items() if "topk" in kname]
+                n_rec = sum(n for _ms, n in got)
+                if n_rec >= 10:
+                    return sum(ms for ms, _n in got) / n_rec
+            raise AssertionError(f"topk {name}: the profiler recorded "
+                                 f"{n_rec} of 20 launches")
+        cold = device_ms(flush=flush)
+        warm = device_ms()
+        ms = cuda_time_ms(call)
         plain = cuda_time_ms(lambda: K.topk_rows_plain(x, p, k), iters=5)
         lib = cuda_time_ms(lambda: torch.topk(x, k, dim=1, largest=False))
         n, C = x.shape
@@ -260,13 +311,19 @@ def run_topk(results: dict) -> dict:
         # (n, k) values and indices written once
         nbytes = 4 * n * C + 4 * n * k * (p is not None) + 8 * n * k
         b, by, tc = bound_ms(nbytes, float(n) * C * k)
-        rows.append({"case": name, "shape": [n, C], "k": k, "ms": ms,
+        rows.append({"case": name, "shape": [n, C], "k": k, "ms": cold,
+                     "device_ms_warm": warm, "wrapper_ms": ms,
                      "plain_ms": plain, "library_ms": lib, "bound_ms": b,
-                     "bound_by": by, "tc_bound_ms": tc})
+                     "bound_by": by, "tc_bound_ms": tc,
+                     "bound_share": b / cold,
+                     "blocks_per_sm": (blocks_per_sm(C, k) if blocks_per_sm
+                                       else None)})
         worst = max(worst, float((d0 - d1).abs().max()))
     main = rows[0]   # the candidate top-k dominates the path's launches
     results["topk_rows"] = {
-        "max_abs_err": worst, "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "max_abs_err": worst, "ms": main["ms"],
+        "device_ms_warm": main["device_ms_warm"],
+        "wrapper_ms": main["wrapper_ms"], "plain_ms": main["plain_ms"],
         "library_ms": main["library_ms"], "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"], "tc_bound_ms": main["tc_bound_ms"],
         "cases": rows}
@@ -665,6 +722,10 @@ def run_trunks(results: dict) -> dict:
                 "bound_by": b_b[1], "bitwise_repeat": True,
                 "rel_fro_max": max(stats.values()),
                 "worst": max(stats, key=stats.get)}
+        dp5, dcg5, dcc5, dcol5 = FM.launch_trunks(
+            *args, backward=True, g_occ=I["g_occ"], g_rgb=I["g_rgb"],
+            need_dp=need_dp, need_wgrads=wg)
+        case["bwd_sha256"] = digest(dp5, dcg5, dcc5, *(dcol5 or []))
         if not need_dp and n == 20000 and wg == with_color:
             case["fwd_device_ms"] = kernel_ms(
                 lambda: FM.launch_trunks(*args, backward=False))
@@ -705,15 +766,20 @@ def tile_widths(I):
             2 * I["Bs"][1].shape[1], I["col"][0].shape[1])
 
 
-def kernel_ms(fn, iters: int = 10) -> dict:
-    """Device time per call (ms) of each kernel that ``fn`` launches, from
-    torch.profiler over ``iters`` calls after one warm-up call."""
+def kernel_launches(fn, iters: int = 10, flush=None) -> dict:
+    """{kernel: (device ms, launches recorded)} of each kernel that ``fn``
+    launches, summed by torch.profiler over ``iters`` calls after one
+    warm-up call; with ``flush`` (a tensor larger than the L2 cache)
+    zeroed before each call, so that ``fn`` finds its inputs in device
+    memory (the zeroing kernel is listed under its own name)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
+            if flush is not None:
+                flush.zero_()
             fn()
         torch.cuda.synchronize()
     out: dict = {}
@@ -723,8 +789,16 @@ def kernel_ms(fn, iters: int = 10) -> dict:
             us = getattr(ev, "self_cuda_time_total", 0)
         if us and us > 0:
             name = ev.key.split("(")[0]
-            out[name] = out.get(name, 0.0) + us / 1e3 / iters
+            ms, n = out.get(name, (0.0, 0))
+            out[name] = (ms + us / 1e3, n + ev.count)
     return out
+
+
+def kernel_ms(fn, iters: int = 10, flush=None) -> dict:
+    """Device time per call (ms) of each kernel that ``fn`` launches
+    (kernel_launches)."""
+    return {k: v[0] / iters
+            for k, v in kernel_launches(fn, iters, flush).items()}
 
 
 def launch_memory(fn) -> dict:
@@ -1089,10 +1163,13 @@ def run_composite(results: dict) -> dict:
     against composite_bwd_plain, on the same inputs: colour with the
     sigmoid tail (the SLAM run's encode_exposure False), colour raw
     (encode_exposure), geometry only, and a ragged 601 rays (3005 samples,
-    not a multiple of #6's 64-sample tile).  Two runs of the wrapper must
-    agree bit for bit.  The bare launcher is timed, #6's device time split
-    by pass, the occupancy calculator's blocks per SM of its tile pass and
-    the device memory of one #6 launch reported."""
+    not a multiple of the 64-sample tile).  Two runs of the wrapper, and of
+    #7, must agree bit for bit.  The bare launchers are timed, #7 beside
+    the composition that nicer_fused_composite's backward runs on #6's
+    saved occ and rgb (comp_cotangents in tensor ops, then #5), each
+    kernel's device time split by pass, the occupancy calculator's blocks
+    per SM of both tile passes and the device memory of one #6 and one #7
+    launch reported."""
     import torch
     from hpslam_tpu_torch import _cuda
     from hpslam_tpu_torch.ops import fused_mlp as FM
@@ -1127,9 +1204,15 @@ def run_composite(results: dict) -> dict:
         cot = (I["dD"], I["dV"], I["dC"])
         k7 = FM.fused_comp_bwd(*args[:8], *cot, *args[8:13], True,
                                sigmoid_rgb)
+        k7b = FM.fused_comp_bwd(*args[:8], *cot, *args[8:13], True,
+                                sigmoid_rgb)
         p7 = FM.composite_bwd_plain(*args[:8], *cot, *args[8:13], True,
                                     sigmoid_rgb)
         torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in
+                   zip((*k7[:2], *k7[2]), (*k7b[:2], *k7b[2]))):
+            raise AssertionError(f"composite: kernel 7 does not repeat "
+                                 f"bitwise (n_r={n_r})")
         pairs = [("depth", k[0], p[0], "fwd"), ("var", k[1], p[1], "fwd"),
                  ("dcg", k[3], p[3], "bwd"), ("k7 dcg", k7[0], p7[0], "bwd")]
         if with_color:
@@ -1156,10 +1239,25 @@ def run_composite(results: dict) -> dict:
 
         def kernel6():
             return FM.launch_composite(*args)
+
+        def kernel7():
+            return FM.launch_composite(*args, backward=True, dD=I["dD"],
+                                       dV=I["dV"], dC=I["dC"],
+                                       need_wgrads=True)
+        _d, _v, _c, occ, rgb = kernel6()
+
+        def composition():
+            g_occ, g_rgb = FM.comp_cotangents(occ, rgb, I["z"], I["pm"],
+                                              COMP_COEF, *cot,
+                                              sigmoid_rgb and with_color)
+            return FM.launch_trunks(
+                I["p"], I["cg"], args[2], I["Bs"], I["geo"], args[7],
+                mcfg.n_blocks, mcfg.skip, with_color, backward=True,
+                g_occ=g_occ.contiguous(), g_rgb=g_rgb.contiguous(),
+                need_dp=False, need_wgrads=True)
         t6 = cuda_time_ms(kernel6)
-        t7 = cuda_time_ms(lambda: FM.launch_composite(
-            *args, backward=True, dD=I["dD"], dV=I["dV"], dC=I["dC"],
-            need_wgrads=True), iters=10)
+        t7 = cuda_time_ms(kernel7, iters=10)
+        t_comp = cuda_time_ms(composition, iters=10)
 
         def plain_fwd():
             with torch.no_grad():
@@ -1180,7 +1278,16 @@ def run_composite(results: dict) -> dict:
                          if k_.startswith("cp_")},
                      "fwd_memory": launch_memory(kernel6),
                      "bwd_ms": t7, "bwd_plain_ms": tp7,
-                     "bwd_bound_ms": b7[0], "bound_by": b7[1]})
+                     "bwd_bound_ms": b7[0], "bwd_tc_bound_ms": b7[2],
+                     "bound_by": b7[1],
+                     "bwd_pass_ms": {
+                         k_: v for k_, v in kernel_ms(kernel7).items()
+                         if k_.startswith(("cp_", "wg_tc_"))},
+                     "bwd_memory": launch_memory(kernel7),
+                     "composition_ms": t_comp,
+                     "composition_device_ms": sum(
+                         kernel_ms(composition).values()),
+                     "composition_memory": launch_memory(composition)})
         if main is None:
             main = (case, b6, b7)
     _cuda.reset_launches()
@@ -1196,12 +1303,15 @@ def run_composite(results: dict) -> dict:
         "max_abs_err": worst["bwd"], "ms": case["bwd_ms"],
         "plain_ms": case["bwd_plain_ms"], "bound_ms": b7[0],
         "bound_by": b7[1], "tc_bound_ms": b7[2],
-        "library_ms": None}
+        "library_ms": None, "pass_ms": case["bwd_pass_ms"],
+        "composition_ms": case["composition_ms"],
+        "geo_only_ms": cases[2]["bwd_ms"],
+        "geo_only_composition_ms": cases[2]["composition_ms"]}
     widths = tile_widths(inputs[4000])
     lib = _cuda.lib("composite")
-    occupancy = {w: lib.hp_composite_blocks_per_sm(*widths,
-                                                    int(w == "colour"))
-                 for w in ("colour", "geometry")}
+    occupancy = {f"{k} {w}": lib.hp_composite_blocks_per_sm(
+        *widths, int(w == "colour"), int(k == "bwd"))
+        for k in ("fwd", "bwd") for w in ("colour", "geometry")}
     return {"tolerance": {"grad_rel_fro": GRAD_REL_FRO,
                           "grad_elem": [GRAD_ELEM_TOL, GRAD_ELEM_FRAC]},
             "blocks_per_sm": occupancy, "cases": cases}
@@ -1258,8 +1368,10 @@ PROFILE_GROUPS = [
 
 
 # kernel-name fragments that a profiled SLAM run must show (and must not):
-# #8 and #6 run on the tile passes, not on the scalar passes they replaced
+# #1 runs its one-pass kernel (k <= 32 on every path), #8 and #6 the tile
+# passes, not the scalar passes they replaced
 PROFILE_KERNELS = {
+    "slam": (("topk_rows_lists",), ("topk_rows_kpass",)),
     "slam_fused": (("tl_fwd_tiles", "tl_rays", "tl_bwd_tiles"),
                    ("tl_fwd_samples",)),
     "slam_mesh": (("cp_fwd_tiles", "cp_rays"), ("cp_samples",)),
@@ -1291,11 +1403,13 @@ def profile_run(run_once, name: str = "") -> dict:
             us, cnt = kernels.get(ev.key, (0.0, 0))
             kernels[ev.key] = (us + dev_us, cnt + ev.count)
     groups: dict = {}
-    for name, (us, _n) in kernels.items():
+    counts: dict = {}
+    for name, (us, cnt) in kernels.items():
         low = name.lower()
         g = next((g for g, keys in PROFILE_GROUPS
                   if any(k in low for k in keys)), "other")
         groups[g] = groups.get(g, 0.0) + us
+        counts[g] = counts.get(g, 0) + cnt
     shown, hidden = PROFILE_KERNELS.get(name, ((), ()))
     missing = [k for k in shown if not any(k in n for n in kernels)]
     present = [k for k in hidden if any(k in n for n in kernels)]
@@ -1310,6 +1424,7 @@ def profile_run(run_once, name: str = "") -> dict:
             "map_ms_mean": summary["map_ms_mean"],
             "groups_ms": {g: us / 1e3 for g, us in
                           sorted(groups.items(), key=lambda kv: -kv[1])},
+            "groups_launches": counts,
             "top_kernels": [{"name": n[:90], "ms": us / 1e3, "launches": c}
                             for n, (us, c) in top]}
 
@@ -1541,6 +1656,7 @@ def main(argv=None) -> int:
                              "launches": int(launches.get(name, 0)),
                              "max_abs_err": r.get("max_abs_err"),
                              "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
+                             "wrapper_ms": r.get("wrapper_ms"),
                              "bound_ms": r.get("bound_ms"),
                              "bound_by": r.get("bound_by"),
                              "tc_bound_ms": r.get("tc_bound_ms"),

@@ -33,6 +33,7 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_long
 SIGNATURES = {
     "topk_rows": [
         ("hp_topk_rows", [_P, _P, _I, _I, _I, _P, _P, _P], _I),
+        ("hp_topk_blocks_per_sm", [_I, _I], _I),
     ],
     "maploss": [
         ("hp_maploss_scratch_floats", [_I] * 9, _L),
@@ -66,7 +67,7 @@ SIGNATURES = {
     ],
     "composite": [
         ("hp_composite_scratch_floats", [_I] * 9, _L),
-        ("hp_composite_blocks_per_sm", [_I] * 6, _I),
+        ("hp_composite_blocks_per_sm", [_I] * 7, _I),
         ("hp_composite",
          [_P, _P, _P, _P, _P, _P, _P, _P, _P,    # p cg cc z pm Bg Bc gw cw
           _I, _I, _I, _I, _I, _I, _I, _I, _I,    # n_r S C emb/hid nb skip

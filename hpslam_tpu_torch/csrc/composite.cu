@@ -19,16 +19,21 @@
 //      1e-10) -> depth, depth variance, colour.
 // A ray's S samples may straddle two tiles, so the compositor keeps its
 // own launch.
-// Backward (kernel #7), still on the scalar trunk code of nicer_trunk.cuh,
-// one sample per thread: 1. (cp_samples) the forward recomputed, its
-// trunk rows kept in scratch, as `_bwd_comp_kernel` recomputes them;
-// 2. cp_rays with the per-ray cotangents dD, dV, dC: the compositor
-// backward of `_comp_bwd` :246 (the reverse suffix loop over S, d occ
-// masked by pm), the sigmoid chain, written over the trunk output rows;
-// 3. (cp_bwd_samples) both trunk backwards -> d c_geo, d c_col; then, with
-// colour and need_wgrads, the colour core's weight gradients by the
-// fixed-order tiled passes of nicer_trunk.cuh.  No atomics: results repeat
-// run to run.
+// Backward (kernel #7), from the per-ray cotangents dD, dV, dC, in four
+// passes on the same tiles:
+//   1. cp_fwd_tiles as the forward runs it -> occ, rgb per sample;
+//   2. cp_rays with the cotangents: the compositor backward of `_comp_bwd`
+//      :246 (the reverse suffix loop over S, d occ masked by pm) and the
+//      sigmoid chain -> the per-sample trunk cotangents g_occ (n,) and
+//      g_rgb (n, 3), two compact arrays in scratch;
+//   3. a tile of TC_TM samples per block (cp_bwd_tiles): the trunk
+//      backward tile of #5, tc_trunks_bwd_tile (the forward recomputed in
+//      the tile, then both trunk backwards), without the position
+//      cotangent -> d c_geo, d c_col;
+//   4. with colour and need_wgrads, the colour core's weight gradients on
+//      the tensor cores (launch_core_wgrads_tc), as #5's.
+// The scratch is #5's (tc_bwd_rows) plus the two cotangent arrays.  No
+// atomics: results repeat run to run.
 //
 // Blocks run in no order on the card, so the Pallas body (one grid step
 // holds whole rays) is split where a ray needs all its samples (pass 2)
@@ -61,38 +66,8 @@ __global__ void __launch_bounds__(TC_THREADS, 2)
                      rgb);
 }
 
-// Pass 1 of kernel #7: one thread per sample, the trunk rows to scratch.
-__global__ void cp_samples(const float* __restrict__ p,
-                           const float* __restrict__ cg,
-                           const float* __restrict__ cc,
-                           const float* __restrict__ Bg,
-                           const float* __restrict__ Bc, Core gw, Core cw,
-                           Rows rg, Rows rc, CShape sh,
-                           float* __restrict__ occ, float* __restrict__ rgb) {
-  const long M = (long)sh.n_r * sh.S;
-  const long m = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (m >= M) return;
-  const int C = sh.C;
-  const float pm[3] = {p[3 * m], p[3 * m + 1], p[3 * m + 2]};
-  for (int ch = 0; ch < C; ++ch) rg.Cf[(long)ch * M + m] = cg[m * C + ch];
-  embed_fwd(pm, Bg, false, rg, gw.emb, m, M);
-  trunk_fwd(gw, rg, 0, m, M);
-  occ[m] = rg.G[m];
-  if (!sh.with_color) {
-    for (int c = 0; c < 3; ++c) rgb[3 * m + c] = 0.0f;
-    return;
-  }
-  for (int ch = 0; ch < C; ++ch) rc.Cf[(long)ch * M + m] = cc[m * C + ch];
-  embed_fwd(pm, Bc, true, rc, cw.emb, m, M);
-  trunk_fwd(cw, rc, 1, m, M);
-  for (int c = 0; c < 3; ++c) {
-    const float v = rc.G[(long)c * M + m];
-    rgb[3 * m + c] = sh.sigmoid_rgb ? sigm(v) : v;
-  }
-}
-
 // Pass 2: one thread per ray.  Forward: depth, var, color.  Backward: the
-// trunk output cotangents of the ray's samples into the G rows.
+// trunk output cotangents of the ray's samples, g_occ (n,), g_rgb (n, 3).
 __global__ void cp_rays(const float* __restrict__ z,
                         const float* __restrict__ pmask,
                         const float* __restrict__ occ,
@@ -101,11 +76,12 @@ __global__ void cp_rays(const float* __restrict__ z,
                         const float* __restrict__ dV,
                         const float* __restrict__ dC,
                         float* __restrict__ depth, float* __restrict__ var,
-                        float* __restrict__ color, Rows rg, Rows rc) {
+                        float* __restrict__ color,
+                        float* __restrict__ g_occ,
+                        float* __restrict__ g_rgb) {
   const long r = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= sh.n_r) return;
   const int S = sh.S;
-  const long M = (long)sh.n_r * S;
   const float* zr = z + r * S;
   float a_s[HP_MAXS], t_s[HP_MAXS], w_s[HP_MAXS], rg_s[HP_MAXS][3];
   bool on[HP_MAXS];
@@ -162,60 +138,67 @@ __global__ void cp_rays(const float* __restrict__ z,
     const float da = dw[s] * t_s[s] - suffix / ((1.0f - a_s[s]) + 1e-10f);
     suffix += dw[s] * w_s[s];
     const float docc = da * sh.coef * a_s[s] * (1.0f - a_s[s]);
-    rg.G[m] = on[s] ? docc : 0.0f;
+    g_occ[m] = on[s] ? docc : 0.0f;
     if (!sh.with_color) continue;
     for (int c = 0; c < 3; ++c) {
       float g = gc[c] * (w_s[s] / wsum);
       if (sh.sigmoid_rgb) g = g * rg_s[s][c] * (1.0f - rg_s[s][c]);
-      rc.G[(long)c * M + m] = g;
+      g_rgb[3 * m + c] = g;
     }
   }
 }
 
-// Pass 3 (backward): one thread per sample, both trunk backwards.
-__global__ void cp_bwd_samples(Core gw, Core cw, Rows rg, Rows rc,
-                               CShape sh, float* __restrict__ dcg,
-                               float* __restrict__ dcc) {
-  const long M = (long)sh.n_r * sh.S;
-  const long m = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (m >= M) return;
-  const int C = sh.C;
-  trunk_bwd(gw, rg, 0, m, M);
-  for (int ch = 0; ch < C; ++ch) dcg[m * C + ch] = rg.DC[(long)ch * M + m];
-  if (sh.with_color) {
-    trunk_bwd(cw, rc, 1, m, M);
-    for (int ch = 0; ch < C; ++ch)
-      dcc[m * C + ch] = rc.DC[(long)ch * M + m];
-  } else {
-    for (int ch = 0; ch < C; ++ch) dcc[m * C + ch] = 0.0f;
-  }
+// Pass 3 of kernel #7: a tile of TC_TM samples per block, #5's tile body
+// without the position cotangent; with wgrads the colour trunk's rows for
+// the weight gradients.
+__global__ void __launch_bounds__(TC_THREADS)
+    cp_bwd_tiles(const float* __restrict__ p, const float* __restrict__ cg,
+                 const float* __restrict__ cc, const float* __restrict__ Bg,
+                 const float* __restrict__ Bc, Core gw, Core cw, Rows rg,
+                 Rows rc, CShape sh, TcSmem sm, int wgrads,
+                 const float* __restrict__ g_occ,
+                 const float* __restrict__ g_rgb, float* __restrict__ dcg,
+                 float* __restrict__ dcc) {
+  extern __shared__ float4 tc_raw[];
+  tc_trunks_bwd_tile(p, cg, cc, Bg, Bc, gw, cw, rg, rc, sh.C,
+                     sh.with_color != 0, false, wgrads != 0, g_occ, g_rgb,
+                     tc_tile((float*)tc_raw, sm), (long)blockIdx.x * TC_TM,
+                     (long)sh.n_r * sh.S, nullptr, dcg, dcc);
 }
 
 // Floats of scratch the entry point needs for n sample rows: none for the
-// forward (kernel #6 keeps its activations on chip).
-extern "C" long hp_composite_scratch_floats(int n, int C, int emb_g,
-                                            int hid_g, int emb_c, int hid_c,
-                                            int nb, int with_color,
-                                            int backward) {
+// forward (kernel #6 keeps its activations on chip); for the backward #5's
+// rows (tc_bwd_rows) and the cotangent arrays g_occ, g_rgb.
+extern "C" long hp_composite_scratch_floats(int n, int C, int hid_g,
+                                            int emb_c, int hid_c, int nb,
+                                            int with_color, int backward,
+                                            int need_wgrads) {
   if (!backward) return 0;
-  long rows = trunk_rows(emb_g, hid_g, C, nb, 1);
-  if (with_color) rows += trunk_rows(emb_c, hid_c, C, nb, 3);
-  return rows * (long)n;
+  return (tc_bwd_rows(emb_c, hid_g, hid_c, C, nb, with_color != 0,
+                      with_color && need_wgrads) + 4) * (long)n;
 }
 
-// Blocks of kernel #6's tile pass (cp_fwd_tiles) that fit one SM at these
-// widths, from the CUDA occupancy calculator; negative: a CUDA error.
+// Blocks of the tile pass of kernel #6 (cp_fwd_tiles, backward == 0) or #7
+// (cp_bwd_tiles) that fit one SM at these widths, from the CUDA occupancy
+// calculator; negative: a CUDA error.
 extern "C" int hp_composite_blocks_per_sm(int C, int emb_g, int hid_g,
                                           int emb_c, int hid_c,
-                                          int with_color) {
+                                          int with_color, int backward) {
   TcSmem sm;
   const int smem = tc_trunks_smem(C, emb_g, hid_g, emb_c, hid_c, with_color,
                                   &sm);
-  int blocks = 0;
-  int rc = tc_smem_attr(cp_fwd_tiles, smem);
-  if (!rc)
-    rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, cp_fwd_tiles, TC_THREADS, smem);
+  int blocks = 0, rc;
+  if (backward) {
+    rc = tc_smem_attr(cp_bwd_tiles, smem);
+    if (!rc)
+      rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, cp_bwd_tiles, TC_THREADS, smem);
+  } else {
+    rc = tc_smem_attr(cp_fwd_tiles, smem);
+    if (!rc)
+      rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, cp_fwd_tiles, TC_THREADS, smem);
+  }
   return rc ? -rc : blocks;
 }
 
@@ -229,8 +212,9 @@ extern "C" int hp_composite_blocks_per_sm(int C, int emb_g, int hid_g,
 //     (n_r*S, C) and, with colour and need_wgrads, the colour-core weight
 //     grads into dcw (flatten_core order, 4*nb+2 device pointers).
 // scratch holds hp_composite_scratch_floats(...) floats; wpart holds
-// wsplits * (emb_c + hid_c) * hid_c floats.  The forward needs hid_g,
-// hid_c and C to be multiples of 8.  Returns the first CUDA error.
+// wsplits times the colour core's element count (every weight and bias).
+// Both kernels need hid_g, hid_c and C to be multiples of 8.  Returns the
+// first CUDA error.
 extern "C" int hp_composite(
     const float* p, const float* cg, const float* cc, const float* z,
     const float* pmask, const float* Bg, const float* Bc,
@@ -254,40 +238,40 @@ extern "C" int hp_composite(
   sh.sigmoid_rgb = sigmoid_rgb; sh.backward = backward; sh.coef = coef;
   const int TB = 128;
   const unsigned gr = (unsigned)((n_r + TB - 1) / TB);
-  cudaError_t e;
+  if (hid_g % 8 || hid_c % 8 || C % 8) return (int)cudaErrorInvalidValue;
+  TcSmem sm;
+  const int smem = tc_trunks_smem(C, emb_g, hid_g, emb_c, hid_c, with_color,
+                                  &sm);
+  const int rc0 = tc_smem_attr(cp_fwd_tiles, smem);
+  if (rc0) return rc0;
+  const unsigned tiles = (unsigned)((M + TC_TM - 1) / TC_TM);
+  cp_fwd_tiles<<<tiles, TC_THREADS, smem, st>>>(p, cg, cc, Bg, Bc, gcore,
+                                                ccore, sh, sm, occ, rgb);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
   if (!backward) {
-    if (hid_g % 8 || hid_c % 8 || C % 8) return (int)cudaErrorInvalidValue;
-    TcSmem sm;
-    const int smem = tc_trunks_smem(C, emb_g, hid_g, emb_c, hid_c,
-                                    with_color, &sm);
-    const int rc0 = tc_smem_attr(cp_fwd_tiles, smem);
-    if (rc0) return rc0;
-    cp_fwd_tiles<<<(unsigned)((M + TC_TM - 1) / TC_TM), TC_THREADS, smem,
-                   st>>>(p, cg, cc, Bg, Bc, gcore, ccore, sh, sm, occ, rgb);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    const Rows none = {};
     cp_rays<<<gr, TB, 0, st>>>(z, pmask, occ, rgb, sh, dD, dV, dC, depth,
-                               var, color, none, none);
+                               var, color, nullptr, nullptr);
     return (int)cudaGetLastError();
   }
-  Rows rg = make_rows(scratch, M, emb_g, hid_g, C, nb, 1);
-  Rows rc = rg;
-  if (with_color)
-    rc = make_rows(scratch + trunk_rows(emb_g, hid_g, C, nb, 1) * M, M,
-                   emb_c, hid_c, C, nb, 3);
-  const unsigned gs = (unsigned)((M + TB - 1) / TB);
-  cp_samples<<<gs, TB, 0, st>>>(p, cg, cc, Bg, Bc, gcore, ccore, rg, rc, sh,
-                                occ, rgb);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  const int wg = with_color && need_wgrads;
+  Rows rg, rc;
+  tc_bwd_layout(scratch, M, emb_c, hid_g, hid_c, C, nb, with_color != 0,
+                wg != 0, &rg, &rc);
+  float* g_occ = scratch + tc_bwd_rows(emb_c, hid_g, hid_c, C, nb,
+                                       with_color != 0, wg != 0) * M;
+  float* g_rgb = g_occ + M;
   cp_rays<<<gr, TB, 0, st>>>(z, pmask, occ, rgb, sh, dD, dV, dC, depth, var,
-                             color, rg, rc);
+                             color, g_occ, g_rgb);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  cp_bwd_samples<<<gs, TB, 0, st>>>(gcore, ccore, rg, rc, sh, dcg, dcc);
+  const int rc1 = tc_smem_attr(cp_bwd_tiles, smem);
+  if (rc1) return rc1;
+  cp_bwd_tiles<<<tiles, TC_THREADS, smem, st>>>(
+      p, cg, cc, Bg, Bc, gcore, ccore, rg, rc, sh, sm, wg, g_occ, g_rgb, dcg,
+      dcc);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  if (!(with_color && need_wgrads)) return 0;
-  return launch_core_wgrads(ccore, rc, M, wpart, wsplits, dcw, st);
+  if (!wg) return 0;
+  return launch_core_wgrads_tc(ccore, rc, M, wpart, wsplits, dcw, st);
 }

@@ -1,9 +1,10 @@
 // NICER decoder trunks on Hopper's tensor cores, a tile of samples per
 // block, shared by the mapping-loss backward of maploss.cu (kernel #3), the
-// trunk pair of trunks.cu (kernels #4 and #5), the composite forward of
-// composite.cu (kernel #6) and the tracker-loss pair of trackloss.cu
-// (kernels #8 and #9).  #4 and #6 run one device function for their
-// samples (tc_trunks_fwd_tile), so that the two cannot drift apart.
+// trunk pair of trunks.cu (kernels #4 and #5), the composite pair of
+// composite.cu (kernels #6 and #7) and the tracker-loss pair of
+// trackloss.cu (kernels #8 and #9).  #4 and #6 run one device function for
+// their samples (tc_trunks_fwd_tile), #5 and #7 another
+// (tc_trunks_bwd_tile), so that the pairs cannot drift apart.
 //
 // Device code for the two trunks of hpslam_tpu/ops/fused_mlp.py
 // (`_trunk_fwd_block` :142, `_trunk_bwd_block` :170): the ReLU geometry
@@ -35,8 +36,9 @@
 //     t-th component for every sample): the pre-activations (read back
 //     for the activation's derivative), the trunk output, and for the
 //     weight gradients the layer inputs, dA_i, dH_i and the output
-//     cotangent.  A forward that nothing reads back (kernel #4) stores no
-//     row at all.
+//     cotangent.  A forward that nothing reads back (kernels #4, #6)
+//     stores no row at all; the trunk backwards (#5, #7) keep only those
+//     rows (tc_bwd_rows).
 //   * Weight gradients X^T dY over the M samples are one launch for every
 //     weight of the core: 64 x 64 output tiles on the same 3xTF32 mma, the
 //     samples split into fixed ranges that depend on the shape only, the
@@ -554,8 +556,123 @@ __device__ void tc_trunks_fwd_tile(
   }
 }
 
+// Gs (TC_TM x 8, zero beyond nout) from a sample-major (n, nout) cotangent
+// and, if Gg is given, the G rows.
+__device__ void tile_cot(const float* __restrict__ g, int nout, float* Gs,
+                         float* Gg, long m0, long M) {
+  for (int e = threadIdx.x; e < TC_TM * 8; e += blockDim.x) {
+    const int r = e / 8, c = e % 8;
+    const long m = m0 + r;
+    float v = 0.0f;
+    if (c < nout && m < M) {
+      v = g[m * nout + c];
+      if (Gg) Gg[(long)c * M + m] = v;
+    }
+    Gs[r * TC_GLD + c] = v;
+  }
+}
+
+// (n, C) rows of a sample-major output from Cs (zero if Cs is null).
+__device__ void tile_feat_out(const float* Cs, int C, float* out, long m0,
+                              long M) {
+  for (int e = threadIdx.x; e < TC_TM * C; e += blockDim.x) {
+    const int r = e / C, ch = e % C;
+    if (m0 + r < M) out[(m0 + r) * C + ch] = Cs ? Cs[r * (C + 4) + ch] : 0.0f;
+  }
+}
+
+// Both trunk backwards on the tile of samples m0 .. m0 + TC_TM (kernels #5
+// and #7): the forward recomputed in the tile (the pre-activations to the A
+// rows), the output cotangents g_occ (M,) and g_rgb (M, 3), then
+// tc_trunk_bwd for each trunk -> dcg, dcc (M, C), dcc zero without colour;
+// with need_dp the cotangent of the points p through the embeds into dp
+// (M, 3), zero without; dp may be null when need_dp is false.  With wg the
+// colour trunk's rows for the weight gradients (E, Cf, H, DH, G, and dL/da
+// over the A rows).
+__device__ void tc_trunks_bwd_tile(
+    const float* __restrict__ p, const float* __restrict__ cg,
+    const float* __restrict__ cc, const float* __restrict__ Bg,
+    const float* __restrict__ Bc, const Core& gw, const Core& cw,
+    const Rows& rg, const Rows& rc, int C, bool with_color, bool need_dp,
+    bool wg, const float* __restrict__ g_occ,
+    const float* __restrict__ g_rgb, const TcTile& T, long m0, long M,
+    float* __restrict__ dp, float* __restrict__ dcg,
+    float* __restrict__ dcc) {
+  for (int e = threadIdx.x; e < TC_TM * 3; e += blockDim.x)
+    T.Ps[e] = m0 + e / 3 < M ? p[3 * m0 + e] : 0.0f;
+  tile_feat(cg, C, T.Cs, nullptr, m0, M);
+  __syncthreads();
+  const int embp_g = round8(gw.emb);
+  tile_embed(T.Ps, Bg, false, gw.emb, embp_g, T.Es, nullptr, m0, M);
+  __syncthreads();
+  tc_trunk_fwd(gw, rg, 0, T, embp_g, m0, M, false, false);
+  tile_cot(g_occ, 1, T.Gs, nullptr, m0, M);
+  tc_trunk_bwd(gw, rg, 0, T, embp_g, m0, M, need_dp, false);
+  tile_feat_out(T.Cs, C, dcg, m0, M);
+  float dpg[3] = {0.0f, 0.0f, 0.0f}, dpc[3] = {0.0f, 0.0f, 0.0f};
+  if (need_dp && threadIdx.x < TC_TM)
+    tile_embed_bwd(T.Ps, Bg, false, gw.emb, embp_g, T.Es, dpg);
+  __syncthreads();
+  if (with_color) {
+    const int embp_c = round8(cw.emb);
+    tile_feat(cc, C, T.Cs, wg ? rc.Cf : nullptr, m0, M);
+    tile_embed(T.Ps, Bc, true, cw.emb, embp_c, T.Es, wg ? rc.E : nullptr,
+               m0, M);
+    __syncthreads();
+    tc_trunk_fwd(cw, rc, 1, T, embp_c, m0, M, wg, false);
+    tile_cot(g_rgb, 3, T.Gs, wg ? rc.G : nullptr, m0, M);
+    tc_trunk_bwd(cw, rc, 1, T, embp_c, m0, M, need_dp, wg);
+    tile_feat_out(T.Cs, C, dcc, m0, M);
+    if (need_dp && threadIdx.x < TC_TM)
+      tile_embed_bwd(T.Ps, Bc, true, cw.emb, embp_c, T.Es, dpc);
+  } else {
+    tile_feat_out(nullptr, C, dcc, m0, M);
+  }
+  if (!dp) return;
+  const long m = m0 + threadIdx.x;
+  if (threadIdx.x < TC_TM && m < M)
+    for (int d = 0; d < 3; ++d)
+      dp[3 * m + d] = 6.2831855f * dpg[d] + 6.2831855f * dpc[d];
+}
+
+// Scratch of tc_trunks_bwd_tile: rows of M floats (row t of a quantity
+// holds its t-th component for every sample) for what a later step reads
+// back: both trunks' pre-activations (read by tc_trunk_bwd) and, with
+// wgrads, the colour trunk's rows that its weight gradients read (the
+// embedding, the feature, the block outputs, dL/dh and the output
+// cotangent).  Nothing else of the Rows layout is written.
+static long tc_bwd_rows(int emb_c, int hid_g, int hid_c, int C, int nb,
+                        bool with_color, bool wgrads) {
+  long rows = (long)nb * hid_g;
+  if (with_color) {
+    rows += (long)nb * hid_c;
+    if (wgrads) rows += (long)emb_c + C + 2L * nb * hid_c + 3;
+  }
+  return rows;
+}
+
+// The two trunks' Rows over that scratch (unused rows null).
+static void tc_bwd_layout(float* s, long M, int emb_c, int hid_g, int hid_c,
+                          int C, int nb, bool with_color, bool wgrads,
+                          Rows* rg, Rows* rc) {
+  const Rows none = {};
+  *rg = none;
+  *rc = none;
+  rg->A = s;
+  s += (long)nb * hid_g * M;
+  if (!with_color) return;
+  rc->A = s;
+  s += (long)nb * hid_c * M;
+  if (!wgrads) return;
+  rc->E = s;
+  rc->Cf = rc->E + (long)emb_c * M;
+  rc->H = rc->Cf + (long)C * M;
+  rc->DH = rc->H + (long)nb * hid_c * M;
+  rc->G = rc->DH + (long)nb * hid_c * M;
+}
+
 // Dynamic shared memory (bytes) of a tile kernel that runs the geometry
-// trunk and, with colour, the colour trunk (#4, #5, #6): the layout in sm.
+// trunk and, with colour, the colour trunk (#4-7): the layout in sm.
 static int tc_trunks_smem(int C, int emb_g, int hid_g, int emb_c, int hid_c,
                           int with_color, TcSmem* sm) {
   *sm = tc_smem(round8(emb_g), hid_g, round8(emb_c), hid_c, C,

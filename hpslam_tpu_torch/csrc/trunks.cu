@@ -15,8 +15,9 @@
 // raw rgb (n, 3) (zero without colour) and nothing else: the Pallas
 // forward keeps every activation in VMEM, and #5 recomputes the forward.
 // Its samples run tc_trunks_fwd_tile of nicer_trunk_tc.cuh, which the
-// composite forward (kernel #6, composite.cu) runs too.  Geometry-only stages ask for the geometry trunk's shared memory alone
-// (~81 KB against ~210 KB with colour), so two blocks fit an SM.
+// composite forward (kernel #6, composite.cu) runs too.  Geometry-only
+// stages ask for the geometry trunk's shared memory alone (~81 KB against
+// ~210 KB with colour), so two blocks fit an SM.
 //
 // Backward (kernel #5): the forward recomputed (as the Pallas kernel
 // does), the output cotangents, both trunk backwards, giving d(c_geo),
@@ -24,11 +25,13 @@
 // through the embeds:
 //   dp = 2 pi (cos(proj_g) d_eg) Bg^T
 //      + 2 pi (cos(proj_c) d_ec_sin - sin(proj_c) d_ec_cos) Bc^T.
-// Then, with need_wgrads and colour, the colour core's weight gradients,
-// summed over every sample in fixed ranges (no atomics), on the same
-// tensor-core products; only the pre-activations and the rows the weight
-// gradients read go to global memory.  The geometry core and both Fourier
-// B matrices are frozen, as in the reference: no gradient is computed.
+// Its samples run tc_trunks_bwd_tile, which the composite backward (kernel
+// #7) runs too.  Then, with need_wgrads and colour, the colour core's
+// weight gradients, summed over every sample in fixed ranges (no atomics),
+// on the same tensor-core products; only the pre-activations and the rows
+// the weight gradients read go to global memory (tc_bwd_rows).  The
+// geometry core and both Fourier B matrices are frozen, as in the
+// reference: no gradient is computed.
 //
 // Bound on the card: operations (about 0.2 MFLOP per sample forward and
 // twice that backward, against ~0.3 kB of input per sample).
@@ -37,31 +40,6 @@
 struct TShape {
   int n, C, with_color, need_dp;
 };
-
-// Gs (TC_TM x 8, zero beyond nout) from a sample-major (n, nout) cotangent
-// and, if Gg is given, the G rows.
-__device__ void tile_cot(const float* __restrict__ g, int nout, float* Gs,
-                         float* Gg, long m0, long M) {
-  for (int e = threadIdx.x; e < TC_TM * 8; e += blockDim.x) {
-    const int r = e / 8, c = e % 8;
-    const long m = m0 + r;
-    float v = 0.0f;
-    if (c < nout && m < M) {
-      v = g[m * nout + c];
-      if (Gg) Gg[(long)c * M + m] = v;
-    }
-    Gs[r * TC_GLD + c] = v;
-  }
-}
-
-// (n, C) rows of a sample-major output from Cs.
-__device__ void tile_feat_out(const float* Cs, int C, float* out, long m0,
-                              long M) {
-  for (int e = threadIdx.x; e < TC_TM * C; e += blockDim.x) {
-    const int r = e / C, ch = e % C;
-    if (m0 + r < M) out[(m0 + r) * C + ch] = Cs ? Cs[r * (C + 4) + ch] : 0.0f;
-  }
-}
 
 // Kernel #4: a tile of TC_TM samples per block, both trunk forwards; occ
 // and rgb straight from the output tile, no scratch rows.
@@ -89,56 +67,21 @@ __global__ void __launch_bounds__(TC_THREADS)
                  const float* __restrict__ g_rgb, float* __restrict__ dp,
                  float* __restrict__ dcg, float* __restrict__ dcc) {
   extern __shared__ float4 tc_raw[];
-  const TcTile T = tc_tile((float*)tc_raw, sm);
-  const long M = sh.n;
-  const long m0 = (long)blockIdx.x * TC_TM;
-  const int C = sh.C;
-  const bool need_dp = sh.need_dp != 0, wg = wgrads != 0;
-  for (int e = threadIdx.x; e < TC_TM * 3; e += blockDim.x)
-    T.Ps[e] = m0 + e / 3 < M ? p[3 * m0 + e] : 0.0f;
-  tile_feat(cg, C, T.Cs, nullptr, m0, M);
-  __syncthreads();
-  const int embp_g = round8(gw.emb);
-  tile_embed(T.Ps, Bg, false, gw.emb, embp_g, T.Es, nullptr, m0, M);
-  __syncthreads();
-  tc_trunk_fwd(gw, rg, 0, T, embp_g, m0, M, false, false);
-  tile_cot(g_occ, 1, T.Gs, nullptr, m0, M);
-  tc_trunk_bwd(gw, rg, 0, T, embp_g, m0, M, need_dp, false);
-  tile_feat_out(T.Cs, C, dcg, m0, M);
-  float dpg[3] = {0.0f, 0.0f, 0.0f}, dpc[3] = {0.0f, 0.0f, 0.0f};
-  if (need_dp && threadIdx.x < TC_TM)
-    tile_embed_bwd(T.Ps, Bg, false, gw.emb, embp_g, T.Es, dpg);
-  __syncthreads();
-  if (sh.with_color) {
-    const int embp_c = round8(cw.emb);
-    tile_feat(cc, C, T.Cs, wg ? rc.Cf : nullptr, m0, M);
-    tile_embed(T.Ps, Bc, true, cw.emb, embp_c, T.Es, wg ? rc.E : nullptr,
-               m0, M);
-    __syncthreads();
-    tc_trunk_fwd(cw, rc, 1, T, embp_c, m0, M, wg, false);
-    tile_cot(g_rgb, 3, T.Gs, wg ? rc.G : nullptr, m0, M);
-    tc_trunk_bwd(cw, rc, 1, T, embp_c, m0, M, need_dp, wg);
-    tile_feat_out(T.Cs, C, dcc, m0, M);
-    if (need_dp && threadIdx.x < TC_TM)
-      tile_embed_bwd(T.Ps, Bc, true, cw.emb, embp_c, T.Es, dpc);
-  } else {
-    tile_feat_out(nullptr, C, dcc, m0, M);
-  }
-  const long m = m0 + threadIdx.x;
-  if (threadIdx.x < TC_TM && m < M)
-    for (int d = 0; d < 3; ++d)
-      dp[3 * m + d] = 6.2831855f * dpg[d] + 6.2831855f * dpc[d];
+  tc_trunks_bwd_tile(p, cg, cc, Bg, Bc, gw, cw, rg, rc, sh.C,
+                     sh.with_color != 0, sh.need_dp != 0, wgrads != 0, g_occ,
+                     g_rgb, tc_tile((float*)tc_raw, sm),
+                     (long)blockIdx.x * TC_TM, sh.n, dp, dcg, dcc);
 }
 
 // Floats of scratch the entry point needs for n samples: none for the
-// forward (kernel #4 keeps its activations on chip).
-extern "C" long hp_trunks_scratch_floats(int n, int C, int emb_g, int hid_g,
-                                         int emb_c, int hid_c, int nb,
-                                         int with_color, int backward) {
+// forward (kernel #4 keeps its activations on chip), tc_bwd_rows rows for
+// the backward.
+extern "C" long hp_trunks_scratch_floats(int n, int C, int hid_g, int emb_c,
+                                         int hid_c, int nb, int with_color,
+                                         int backward, int need_wgrads) {
   if (!backward) return 0;
-  long rows = trunk_rows(emb_g, hid_g, C, nb, 1);
-  if (with_color) rows += trunk_rows(emb_c, hid_c, C, nb, 3);
-  return rows * (long)n;
+  return tc_bwd_rows(emb_c, hid_g, hid_c, C, nb, with_color != 0,
+                     with_color && need_wgrads) * (long)n;
 }
 
 // Blocks of kernel #4 (backward == 0) or #5 that fit one SM at these
@@ -206,14 +149,12 @@ extern "C" int hp_trunks(
                                                  ccore, sh, sm, occ, rgb);
     return (int)cudaGetLastError();
   }
-  Rows rg = make_rows(scratch, M, emb_g, hid_g, C, nb, 1);
-  Rows rc = rg;
-  if (with_color)
-    rc = make_rows(scratch + trunk_rows(emb_g, hid_g, C, nb, 1) * M, M,
-                   emb_c, hid_c, C, nb, 3);
+  const int wg = with_color && need_wgrads;
+  Rows rg, rc;
+  tc_bwd_layout(scratch, M, emb_c, hid_g, hid_c, C, nb, with_color != 0,
+                wg != 0, &rg, &rc);
   const int rc1 = tc_smem_attr(tr_bwd_tiles, smem);
   if (rc1) return rc1;
-  const int wg = with_color && need_wgrads;
   tr_bwd_tiles<<<grid, TC_THREADS, smem, st>>>(
       p, cg, cc, Bg, Bc, gcore, ccore, rg, rc, sh, sm, wg, g_occ, g_rgb, dp,
       dcg, dcc);

@@ -31,9 +31,10 @@ CUDA tensors, launches its kernel or raises.
   written out (``comp_bwd``) on the saved occ / rgb, then the trunk
   backward (kernel #5).  The union mapping path runs it under a device
   mesh.  Plain version: ``composite_plain``.  Kernel #7, the fully fused
-  backward (``fused_comp_bwd``, reference ``_fused_comp_bwd`` :756), is
-  held against that composition (``composite_bwd_plain``) and, as in the
-  reference, called by no path.
+  backward (``fused_comp_bwd``, reference ``_fused_comp_bwd`` :756: #6's
+  tile pass, the compositor backward, #5's tile backward), is held against
+  that composition (``composite_bwd_plain``) and, as in the reference,
+  called by no path.
 
 Packed cache row layout of the mapping loss (``mapper.pack_union_cache``),
 S samples, u union slots: [z S | pts 3S | rays_d 3 | d_gt 1 | c_gt 3 |
@@ -167,9 +168,9 @@ def _ptr_array(tensors):
 
 
 def _wgrad_partials(col_flat, M: int, dev):
-    """(ranges, scratch) of the tensor-core weight gradients of kernels #3
-    and #5: ceil(M / 1024) fixed sample ranges, each with a partial of every
-    weight and bias of the colour core."""
+    """(ranges, scratch) of the tensor-core weight gradients of kernels #3,
+    #5 and #7: ceil(M / 1024) fixed sample ranges, each with a partial of
+    every weight and bias of the colour core."""
     wsplits = max(1, -(-M // 1024))
     numel = sum(w.numel() for w in col_flat)
     return wsplits, torch.empty((wsplits * numel,), dtype=torch.float32,
@@ -410,9 +411,9 @@ def launch_trunks(p, c_geo, c_col, Bs, geo_flat, col_flat, n_blocks, skip,
     _check_tc_widths("trunks", hid_g, hid_c, C)
     lib = _cuda.lib("trunks")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    n_scr = lib.hp_trunks_scratch_floats(n, C, emb_g, hid_g, emb_c, hid_c,
+    n_scr = lib.hp_trunks_scratch_floats(n, C, hid_g, emb_c, hid_c,
                                          n_blocks, int(with_color),
-                                         int(backward))
+                                         int(backward), int(wgrads))
     scratch = torch.empty((n_scr,), dtype=torch.float32, device=dev)
     occ = rgb = dp = dcg = dcc = wpart = None
     dcol = []
@@ -842,14 +843,13 @@ def launch_composite(p, c_geo, c_col, z, pm, Bs, geo_flat, col_flat,
     hid_g, emb_g = geo_flat[0].shape[1], Bg.shape[1]
     hid_c = col_flat[0].shape[1] if with_color else hid_g
     emb_c = 2 * Bc.shape[1] if with_color else emb_g
-    if not backward:
-        _check_tc_widths("composite", hid_g, hid_c, C)
+    _check_tc_widths("composite", hid_g, hid_c, C)
     lib = _cuda.lib("composite")
     stream = torch.cuda.current_stream(dev).cuda_stream
     wgrads = bool(backward and with_color and need_wgrads)
-    n_scr = lib.hp_composite_scratch_floats(n, C, emb_g, hid_g, emb_c, hid_c,
+    n_scr = lib.hp_composite_scratch_floats(n, C, hid_g, emb_c, hid_c,
                                             n_blocks, int(with_color),
-                                            int(backward))
+                                            int(backward), int(wgrads))
     scratch = torch.empty((n_scr,), dtype=torch.float32, device=dev)
 
     def new(*shape):
@@ -863,8 +863,7 @@ def launch_composite(p, c_geo, c_col, z, pm, Bs, geo_flat, col_flat,
         dcg, dcc = new(n, C), new(n, C)
         if wgrads:
             dcol = [torch.empty_like(w) for w in col_flat]
-            wsplits = max(1, -(-n // 1024))
-            wpart = new(wsplits * (emb_c + hid_c) * hid_c)
+            wsplits, wpart = _wgrad_partials(col_flat, n, dev)
     else:
         d, v, c = new(n_r), new(n_r), new(n_r, 3)
 

@@ -8,9 +8,11 @@ and takes an exact top-k over their points.
 
 Kernel 1, ``topk_rows``: exact ascending row top-k with first-occurrence
 ties and an optional f32 payload (hpslam_tpu/ops/knn.py `_pl_topk` /
-`_topk_rows_kernel`).  CUDA tensors go to ``csrc/topk_rows.cu``; CPU tensors
-to ``topk_rows_plain``, the same k argmin passes in PyTorch.  Both return
-copies of existing floats, so they agree bit for bit.
+`_topk_rows_kernel`).  CUDA tensors go to ``csrc/topk_rows.cu`` (one
+streaming pass with per-lane register lists for k <= 32, a k-pass kernel
+for larger k); CPU tensors to ``topk_rows_plain``, the same k argmin passes
+in PyTorch.  Both return copies of existing floats, so they agree bit for
+bit.
 
 Tile selection (``select_tiles``): below ``NARROW_MIN_TILES`` tiles, the exact
 top-``probe`` over the bounds through kernel 1.  From there on, the bounds are
@@ -23,6 +25,8 @@ against the reference's 0.945 on a 60k-point wall (tests/test_torch_knn.py
 fixture), 4-fold 0.9448, so the port narrows 4-fold.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -60,18 +64,23 @@ def topk_rows_plain(x: torch.Tensor, payload, k: int):
     return torch.stack(Ds, 1), torch.stack(Vs, 1)
 
 
-def _topk_rows_cuda(x, payload, k: int, lib=None):
+@functools.lru_cache(maxsize=None)
+def _launcher():
+    """hp_topk_rows, built and bound on first use."""
+    return _cuda.lib("topk_rows").hp_topk_rows
+
+
+def _topk_rows_cuda(x, payload, k: int):
+    """Launch kernel 1: one (2, n, k) allocation for both outputs."""
     n, C = x.shape
-    out_d = torch.empty((n, k), dtype=torch.float32, device=x.device)
-    out_v = torch.empty((n, k), dtype=torch.float32, device=x.device)
-    lib = lib or _cuda.lib("topk_rows")
-    stream = (torch.cuda.current_stream(x.device).cuda_stream
-              if x.is_cuda else 0)
-    rc = lib.hp_topk_rows(x.data_ptr(),
-                          payload.data_ptr() if payload is not None else None,
-                          n, C, k, out_d.data_ptr(), out_v.data_ptr(), stream)
+    out = torch.empty((2, n, k), dtype=torch.float32, device=x.device)
+    base = out.data_ptr()
+    rc = _launcher()(x.data_ptr(),
+                     payload.data_ptr() if payload is not None else None,
+                     n, C, k, base, base + 4 * n * k,
+                     torch.cuda.current_stream(x.device).cuda_stream)
     _cuda.check(rc, "topk_rows")
-    return out_d, out_v
+    return out[0], out[1]
 
 
 def topk_rows(x: torch.Tensor, payload, k: int):
@@ -91,8 +100,10 @@ def topk_rows(x: torch.Tensor, payload, k: int):
         return topk_rows_plain(x, payload, k)
     if x.device.type != "cuda":
         raise ValueError(f"topk_rows: unsupported device {x.device}")
-    x = x.contiguous()
-    payload = payload.contiguous() if payload is not None else None
+    if not x.is_contiguous():
+        x = x.contiguous()
+    if payload is not None and not payload.is_contiguous():
+        payload = payload.contiguous()
     if x.shape[0] == 0:
         e = torch.empty((0, k), dtype=torch.float32, device=x.device)
         return e, e.clone()

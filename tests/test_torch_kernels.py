@@ -37,13 +37,26 @@ def cuda():
 @pytest.mark.parametrize("n,C,k,payload", [(4096, 1536, 8, True),
                                            (4093, 128, 12, True),
                                            (2047, 4096, 1, True),
-                                           (1000, 40, 8, False)])
+                                           (1000, 40, 8, False),
+                                           (2000, 128, 32, True),
+                                           (1000, 256, 48, True),
+                                           (1000, 37, 8, False)])
 def test_topk_rows_kernel_bitwise(cuda, n, C, k, payload):
+    """The main path's shapes, the insertion's tile selection (k = 32), a
+    k above 32 (the k-pass kernel) and a ragged C (single-column loads);
+    rows all BIG, partly BIG, above BIG, exactly BIG after one entry below
+    it, and +inf."""
     g = torch.Generator(device=cuda).manual_seed(0)
     x = torch.rand((n, C), generator=g, device=cuda)
     x[::7, 10] = x[::7, 3]
     x[5] = K.BIG
     x[6, C // 3:] = K.BIG
+    x[8] = 3e12
+    x[10] = 3e12
+    x[10, [1, C // 2]] = K.BIG
+    x[10, C - 1] = 0.5
+    x[12] = float("inf")
+    x[12, 3] = 0.125
     p = (torch.randint(0, 1 << 22, (n, C), generator=g, device=cuda).float()
          if payload else None)
     before = _cuda.LAUNCHES["topk_rows"]

@@ -1,13 +1,16 @@
-"""The 3xTF32 arithmetic of the tensor-core trunk kernels (#3, #4, #5, #6,
-#8 and #9, hpslam_tpu_torch/csrc/nicer_trunk_tc.cuh), emulated in plain
-PyTorch on the CPU, against the port's f32 plain trunk and the reference's
+"""The 3xTF32 arithmetic of the tensor-core trunk kernels (#3-9,
+hpslam_tpu_torch/csrc/nicer_trunk_tc.cuh), emulated in plain PyTorch on
+the CPU, against the port's f32 plain trunk and the reference's
 _trunk_fwd_block / _trunk_bwd_block (hpslam_tpu/ops/fused_mlp.py) at
 exact=True; the tracker-loss backward (#9) as a whole: both trunks
 through the emulated products, then the embedding and weight routes of
 d(point) and d(rays), held to chip_smoke.check_drays's rule against
-trackloss_plain in float64; and the composite and tracker-loss forwards
+trackloss_plain in float64; the composite and tracker-loss forwards
 (#6, #8) as a whole, held to the rule that chip_smoke.py's composite and
-trackloss phases apply against composite_plain and trackloss_plain.
+trackloss phases apply against composite_plain and trackloss_plain; and
+the composite backward (#7) as a whole (#6's tile forward, the
+compositor backward, #5's tile backward), held to the composite phase's
+rule against composite_bwd_plain.
 
 The kernels take every trunk and weight-gradient product on TF32 tensor
 cores at f32 accuracy: each f32 operand x is split into hi = tf32(x) and
@@ -187,10 +190,10 @@ def test_3xtf32_trunk_matches_f32_references(trunk):
 
 @pytest.mark.parametrize("kernel", ["maploss", "trunks", "trunks_fwd",
                                     "trackloss", "trackloss_fwd",
-                                    "composite_fwd"])
+                                    "composite_fwd", "composite_bwd"])
 def test_tensor_core_kernels_reject_widths_off_the_mma_grid(kernel):
-    """Kernels #3, #5, #4, #9, #8 and #6 tile every width by the mma's 8:
-    their launchers refuse a hidden width that is not a multiple of 8
+    """Kernels #3, #5, #4, #9, #8, #6 and #7 tile every width by the mma's
+    8: their launchers refuse a hidden width that is not a multiple of 8
     before building or launching anything."""
     n, C, nb = 4, 8, 2
     geo = [torch.zeros(s) for s in [(16, 12), (12,), (28, 12), (12,)]
@@ -216,13 +219,16 @@ def test_tensor_core_kernels_reject_widths_off_the_mma_grid(kernel):
             tFM.launch_trunks(torch.zeros((n, 3)), torch.zeros((n, C)),
                               None, (Bs[0], None), geo, [], nb, 0, False,
                               backward=False)
-        elif kernel == "composite_fwd":
+        elif kernel.startswith("composite"):
             S = 2
+            bwd = kernel == "composite_bwd"
             tFM.launch_composite(torch.zeros((n * S, 3)),
                                  torch.zeros((n * S, C)),
                                  torch.zeros((n * S, C)), torch.zeros((n, S)),
                                  torch.ones((n, S)), Bs, geo, col, nb, 0,
-                                 True, S, 0.1, True, backward=False)
+                                 True, S, 0.1, True, backward=bwd,
+                                 dD=torch.zeros(n), dV=torch.zeros(n),
+                                 dC=torch.zeros((n, 3)), need_wgrads=True)
         else:
             S, K = 2, 2
             bwd = kernel == "trackloss"
@@ -535,3 +541,69 @@ def test_3xtf32_forward_meets_smoke_tolerances(kernel, case):
             continue
         readings[name] = cs.compare_grads(name, a, b, kernel)
     print(kernel, case, readings)
+
+
+# ---------------------------------------------------------------------------
+# Kernel #7 as a whole
+
+
+def emulated_composite_bwd(I, with_color, sigmoid_rgb, dD, dV, dC, mm):
+    """Kernel #7's (dc_geo, dc_col, colour-core weight grads) with both
+    trunks' products through ``mm``: #6's tile forward (cp_fwd_tiles) ->
+    occ, rgb; the compositor backward and the sigmoid chain (cp_rays,
+    scalar f32) -> the per-sample cotangents; then #5's tile backward
+    (cp_bwd_tiles: the forward recomputed, both trunk backwards) and the
+    colour core's weight gradients, no position cotangent."""
+    nb, skip, S = I["nb"], I["skip"], I["S"]
+    p, (Bg, Bc) = I["p"], I["Bs"]
+    trunks = [(fourier_features(p, Bg, concat_cos=False), I["cg"], I["geo"],
+               0, 1)]
+    if with_color:
+        trunks.append((fourier_features(p, Bc, concat_cos=True), I["cc"],
+                       I["col"], 1, 3))
+    outs = _trunk_outputs(trunks, nb, skip, mm)
+    rgb = torch.zeros((p.shape[0], 3))
+    if with_color:
+        rgb = torch.sigmoid(outs[1]) if sigmoid_rgb else outs[1]
+    g_occ, g_rgb = tFM.comp_cotangents(outs[0][:, 0], rgb, I["z"], I["pm"],
+                                       0.1, dD, dV, dC,
+                                       sigmoid_rgb and with_color)
+    grads = [emulated_trunk(e, cc, flat, g, nb, skip, code, mm)
+             for (e, cc, flat, code, _), g in zip(trunks, (g_occ[:, None],
+                                                           g_rgb))]
+    dcc = grads[1][2] if with_color else torch.zeros_like(I["cg"])
+    dcol = grads[1][3] if with_color else []
+    return grads[0][2], dcc, dcol
+
+
+@pytest.mark.parametrize("case", ["colour, sigmoid", "colour, raw",
+                                  "geometry only"])
+def test_3xtf32_composite_bwd_meets_smoke_tolerances(case):
+    """Kernel #7 with 3xTF32 trunk products, at the full model width on 300
+    rays x 5 samples: d c_geo, d c_col and the colour core's weight
+    gradients against the f32 plain version (composite_bwd_plain, the
+    composition the reference's VJP runs) by the rule the smoke's
+    composite phase applies (chip_smoke.compare_grads)."""
+    cs = _chip_smoke()
+    I = _comp_inputs()
+    with_color = case != "geometry only"
+    sigmoid_rgb = case == "colour, sigmoid"
+    rng = np.random.default_rng(13)
+    n = I["z"].shape[0]
+    dD, dV = _t(rng.normal(size=n)), _t(rng.normal(size=n))
+    dC = _t(rng.normal(size=(n, 3)))
+    k = emulated_composite_bwd(I, with_color, sigmoid_rgb, dD, dV, dC, mm3)
+    p = tFM.composite_bwd_plain(
+        I["p"], I["cg"], I["cc"] if with_color else None, I["z"], I["pm"],
+        I["Bs"], I["geo"], I["col"] if with_color else [], dD, dV, dC,
+        I["nb"], I["skip"], with_color, I["S"], 0.1, True, sigmoid_rgb)
+    pairs = [("dcg", k[0], p[0])]
+    if with_color:
+        pairs += [("dcc", k[1], p[1])]
+        pairs += [(f"dcol{i}", a, b) for i, (a, b) in enumerate(zip(k[2],
+                                                                   p[2]))]
+    else:
+        assert not p[1].any()
+    readings = {name: cs.compare_grads(name, a, b, "composite")
+                for name, a, b in pairs}
+    print("composite_bwd", case, readings)
