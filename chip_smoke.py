@@ -291,16 +291,8 @@ def run_topk(results: dict) -> dict:
             return K.topk_rows(x, p, k)
 
         def device_ms(**kw):
-            # the profiler drops some events of such short sessions: the
-            # mean over the launches it recorded, if at least half
-            for _ in range(3):
-                got = [v for kname, v in kernel_launches(
-                    call, iters=20, **kw).items() if "topk" in kname]
-                n_rec = sum(n for _ms, n in got)
-                if n_rec >= 10:
-                    return sum(ms for ms, _n in got) / n_rec
-            raise AssertionError(f"topk {name}: the profiler recorded "
-                                 f"{n_rec} of 20 launches")
+            return sum(device_ms_per_launch(call, ("topk",), f"topk {name}",
+                                            **kw).values())
         cold = device_ms(flush=flush)
         warm = device_ms()
         ms = cuda_time_ms(call)
@@ -430,11 +422,36 @@ def compare_grads(name, k, p, what="maploss"):
     return float(diff.max()), fro
 
 
+def maploss_scratch_bytes(lib, I, with_color, backward, need_wgrads):
+    """Bytes of scratch one launch of kernel #2 or #3 asks for, or None in
+    a tree whose scratch size does not depend on the kernel (before the
+    forward moved onto the tiles)."""
+    fn = lib.hp_maploss_scratch_floats
+    if len(fn.argtypes) != 10:
+        return None
+    C, _emb_g, hid_g, emb_c, hid_c = tile_widths(I)
+    return 4 * fn(I["row"].shape[0], I["kw"]["S"], C, hid_g, emb_c, hid_c,
+                  I["kw"]["n_blocks"], int(with_color), int(backward),
+                  int(need_wgrads))
+
+
 def run_maploss(results: dict) -> dict:
+    """Kernel #3 through nicer_fused_maploss under autograd and kernel #2
+    through it without a gradient, against maploss_plain (losses and every
+    cotangent) at eight cases; each kernel's two launches on the same
+    inputs must agree bit for bit.  Reported per case: the wrapper's times
+    beside the plain version's and the bounds; #2's device time per call
+    from the profiler (L2 flushed between calls, and warm), split by pass;
+    the device memory of one bare launch of each kernel (allocator peak
+    less what was allocated before) and the scratch it asks for; a digest
+    of #3's outputs (gl, cl, duf, daff, dcol: copy this smoke into another
+    tree and run its maploss phase there to compare bit for bit)."""
     import torch
     from hpslam_tpu_torch import _cuda
     from hpslam_tpu_torch.ops import fused_mlp as FM
     dev = torch.device("cuda")
+    lib = _cuda.lib("maploss")
+    flush = torch.empty((2 * L2_BYTES // 4,), device=dev)
     cases = []
     worst_fwd = worst_bwd = 0.0
     timing = {}
@@ -476,14 +493,21 @@ def run_maploss(results: dict) -> dict:
         gk, ck, dk = grads_of(kernel3, leaves())
         gk2, ck2, dk2 = grads_of(kernel3, leaves())
         gp, cp, dp = grads_of(FM.maploss_plain, leaves())
-        with torch.no_grad():                   # kernel 2 through the wrapper
-            g2, c2 = FM.nicer_fused_maploss(
-                I["uf"], I["aff"], I["col"], I["row"], I["okf"], I["geo"],
-                I["Bs"], w_color=w_color, **kw)
+
+        def kernel_fwd():
+            with torch.no_grad():               # kernel 2 through the wrapper
+                return FM.nicer_fused_maploss(
+                    I["uf"], I["aff"], I["col"], I["row"], I["okf"],
+                    I["geo"], I["Bs"], w_color=w_color, **kw)
+        g2, c2 = kernel_fwd()
+        g2b, c2b = kernel_fwd()
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in
                    zip([gk, ck] + dk, [gk2, ck2] + dk2)):
             raise AssertionError(f"maploss: kernel 3 does not repeat "
+                                 f"bitwise (n={n_rays})")
+        if not (torch.equal(g2, g2b) and torch.equal(c2, c2b)):
+            raise AssertionError(f"maploss: kernel 2 does not repeat "
                                  f"bitwise (n={n_rays})")
         if not need_wg and any(t.any() for t in dk[2:]):
             raise AssertionError("maploss: colour-core gradients without "
@@ -514,12 +538,20 @@ def run_maploss(results: dict) -> dict:
             ts[0], ts[1], ts[2:], I["row"], I["okf"], I["geo"], I["Bs"],
             w_color=w_color, need_wgrads=need_wg, **kw), iters=10)
 
-        def kernel_fwd():
-            with torch.no_grad():
-                return FM.nicer_fused_maploss(
-                    I["uf"], I["aff"], I["col"], I["row"], I["okf"],
-                    I["geo"], I["Bs"], w_color=w_color, **kw)
         t2 = cuda_time_ms(kernel_fwd, iters=10)
+        passes = ("ml_", "loss_reduce")
+        pass2 = device_ms_per_launch(kernel_fwd, passes, f"maploss #2 n={n}",
+                                     flush=flush)
+        pass2_warm = device_ms_per_launch(kernel_fwd, passes,
+                                          f"maploss #2 n={n}")
+
+        def bare(backward):
+            return lambda: FM.launch_maploss(
+                I["uf"], I["aff"], I["col"], I["row"], I["okf"], I["geo"],
+                I["Bs"], w_color=w_color, backward=backward,
+                need_wgrads=need_wg and backward, **kw)
+        out3 = bare(True)()
+        sha3 = digest(*out3[:4], *out3[4])
         pts_ = leaves()
         tp3 = cuda_time_ms(lambda: grads_of(FM.maploss_plain, pts_), iters=5)
 
@@ -536,17 +568,32 @@ def run_maploss(results: dict) -> dict:
         b2 = bound_ms(*maploss_work(I["mcfg"], n, S, u, with_color, False,
                                     *numel))
         cases.append({"with_color": with_color, "affine": use_aff, "n": n,
-                      "need_wgrads": need_wg, "fwd_ms": t2,
+                      "need_wgrads": need_wg,
+                      "fwd_device_ms": sum(pass2.values()),
+                      "fwd_device_ms_warm": sum(pass2_warm.values()),
+                      "fwd_pass_ms": pass2, "fwd_wrapper_ms": t2,
                       "fwd_plain_ms": tp2, "fwd_bound_ms": b2[0],
+                      "fwd_tc_bound_ms": b2[2],
+                      "fwd_memory": launch_memory(bare(False)),
+                      "fwd_scratch_bytes": maploss_scratch_bytes(
+                          lib, I, with_color, False, False),
+                      "bwd_memory": launch_memory(bare(True)),
+                      "bwd_scratch_bytes": maploss_scratch_bytes(
+                          lib, I, with_color, True, need_wg),
+                      "bwd_sha256": sha3,
                       "bwd_ms": t3, "bwd_plain_ms": tp3,
                       "bwd_bound_ms": b3[0], "bwd_tc_bound_ms": b3[2],
                       "bound_by": b3[1], "bitwise_repeat": True,
                       "grad_rel_fro_max": max(stats.values()),
                       "worst": max(stats, key=stats.get)})
         if n == 4000 and with_color and not use_aff and need_wg:
-            timing = {"fwd": (t2, tp2, b2), "bwd": (t3, tp3, b3)}
+            timing = {"fwd": (t2, tp2, b2), "bwd": (t3, tp3, b3),
+                      "fwd_device": cases[-1]}
+    fwd_case = timing["fwd_device"]
     results["maploss_fwd"] = {
-        "max_abs_err": worst_fwd, "ms": timing["fwd"][0],
+        "max_abs_err": worst_fwd, "ms": fwd_case["fwd_device_ms"],
+        "device_ms_warm": fwd_case["fwd_device_ms_warm"],
+        "pass_ms": fwd_case["fwd_pass_ms"], "wrapper_ms": timing["fwd"][0],
         "plain_ms": timing["fwd"][1], "bound_ms": timing["fwd"][2][0],
         "bound_by": timing["fwd"][2][1],
         "tc_bound_ms": timing["fwd"][2][2], "library_ms": None}
@@ -792,6 +839,21 @@ def kernel_launches(fn, iters: int = 10, flush=None) -> dict:
             ms, n = out.get(name, (0.0, 0))
             out[name] = (ms + us / 1e3, n + ev.count)
     return out
+
+
+def device_ms_per_launch(fn, keys, what: str, **kw) -> dict:
+    """{kernel: device ms per launch} of the kernels that ``fn`` launches
+    whose names contain one of ``keys`` (kernel_launches over 20 calls):
+    each kernel's mean over the launches the profiler recorded.  It drops
+    some events of such short sessions; at least half are required."""
+    for _ in range(3):
+        got = {k: v for k, v in kernel_launches(fn, iters=20, **kw).items()
+               if any(key in k for key in keys)}
+        n_rec = min((n for _ms, n in got.values()), default=0)
+        if n_rec >= 10:
+            return {k: ms / n for k, (ms, n) in got.items()}
+    raise AssertionError(f"{what}: the profiler recorded {n_rec} of 20 "
+                         f"launches")
 
 
 def kernel_ms(fn, iters: int = 10, flush=None) -> dict:

@@ -36,7 +36,7 @@ SIGNATURES = {
         ("hp_topk_blocks_per_sm", [_I, _I], _I),
     ],
     "maploss": [
-        ("hp_maploss_scratch_floats", [_I] * 9, _L),
+        ("hp_maploss_scratch_floats", [_I] * 10, _L),
         ("hp_maploss",
          [_P, _I, _P, _I, _P, _P, _P, _P,        # row .. Bc
           _P, _P,                                # gw, cw pointer arrays

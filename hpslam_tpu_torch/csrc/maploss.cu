@@ -2,47 +2,48 @@
 //
 // Replaces the Pallas kernel pair of `nicer_fused_maploss`
 // (hpslam_tpu/ops/fused_mlp.py): the forward `_maploss_fwd_kernel` (:1066,
-// launched by `_maploss_fwd` :1274) and the combined forward-plus-
-// cotangents `_maploss_bwd_kernel` (:1098, launched by `_maploss_bwd`
-// :1308).  Every product the Pallas body computes is computed here: the
-// union feature mix, both Fourier embeds, both NICER trunks (ReLU geometry
-// trunk, Softplus(beta=100) colour trunk, skip concat, additive feature
-// injection), the occupancy compositor with -100 forcing, the exposure
-// affine, the masked L1 losses and, in the combined form, d(uf), d(aff)
-// and the colour-core weight gradients.
+// launched by `_maploss_fwd` :1274), kernel #2, and the combined forward-
+// plus-cotangents `_maploss_bwd_kernel` (:1098, launched by `_maploss_bwd`
+// :1308), kernel #3.  Every product the Pallas body computes is computed
+// here: the union feature mix, both Fourier embeds, both NICER trunks (ReLU
+// geometry trunk, Softplus(beta=100) colour trunk, skip concat, additive
+// feature injection), the occupancy compositor with -100 forcing, the
+// exposure affine, the masked L1 losses and, in the combined form, d(uf),
+// d(aff) and the colour-core weight gradients.
 //
 // Layout.  A TPU grid step owned a block of rays with all weights in VMEM
 // and carried the loss and weight-gradient sums from step to step.  Blocks
 // on the card run in no order, so the work is split into passes:
-//   1. per sample: union mix, embeds, both trunk forwards; the outputs,
-//      pre-activations and (for the weight gradients) layer inputs go to a
-//      scratch table of rows of length M = n*S ("transposed": row t holds
-//      component t of every sample).  Kernel #2 runs the scalar pass of
-//      nicer_trunk.cuh, one thread per sample (ml_fwd_samples); kernel #3
-//      the tensor-core tile pass of nicer_trunk_tc.cuh (ml_fwd_tiles).
+//   1. a tile of samples per block (ml_fwd_tiles): union mix, embeds, both
+//      trunk forwards on the tensor-core tiles of nicer_trunk_tc.cuh; the
+//      trunk outputs go to a scratch table of rows of length M = n*S
+//      ("transposed": row t holds component t of every sample), and for
+//      kernel #3 also what its backward reads back (ml_layout).
 //   2. one thread per ray: compositor, affine, per-ray losses and, in the
 //      combined form, the compositor backward (cotangents of occupancy,
 //      raw colour and the affine rows).
 //   3. (kernel #3) a tile of samples per block: both trunk backwards on
 //      tensor cores, giving d(c_geo), d(c_col) and the per-sample
 //      cotangents that the weight gradients need (ml_bwd_tiles).
-//   4. one thread per output element: union-mix backward into d(uf).
-//   5. the colour core's weight gradients, X^T dY over the M samples on
-//      tensor cores in fixed sample ranges, then a pass that adds the
-//      ranges in a fixed order (launch_core_wgrads_tc).
+//   4. (kernel #3) one thread per output element: union-mix backward into
+//      d(uf).
+//   5. (kernel #3) the colour core's weight gradients, X^T dY over the M
+//      samples on tensor cores in fixed sample ranges, then a pass that
+//      adds the ranges in a fixed order (launch_core_wgrads_tc).
 //   6. the two loss sums: one block adds the per-ray partials in a fixed
 //      order.
-// No atomics are used, so the result does not change from run to run.
-// The sums are taken in another order than the Pallas kernel's and the
-// plain PyTorch version's, which is what the stated tolerances cover.
+// Kernel #2 is passes 1, 2 and 6 with nothing kept but the four output
+// rows, as the tracker-loss forward (#8) is #9's pass 1 plus its per-ray
+// pass.  No atomics are used, so the result does not change from run to
+// run.  The sums are taken in another order than the Pallas kernel's and
+// the plain PyTorch version's, which is what the stated tolerances cover.
 //
 // Bound on the card: operations.  At the mapping operating point the two
 // trunks cost about 0.2 MFLOP per sample forward and twice that backward,
-// against a few kB of input per sample.  Kernel #3 runs every trunk and
+// against a few kB of input per sample.  Both kernels run every trunk and
 // weight-gradient product on the tensor cores at f32 accuracy (3xTF32
 // mma.sync, nicer_trunk_tc.cuh), with each tile's activations and each
-// layer's weights in shared memory; kernel #2 keeps the first version's
-// scalar f32 FMAs, one sample per thread.
+// layer's weights in shared memory.
 
 #include "nicer_trunk_tc.cuh"
 
@@ -51,47 +52,6 @@ struct Shape {
   int with_color, sigmoid_rgb, use_affine;
   float coef, w_color;
 };
-
-// Pass 1: one thread per (ray, sample), m = ray*S + s.
-__global__ void ml_fwd_samples(const float* __restrict__ row,
-                               const float* __restrict__ uf,
-                               const float* __restrict__ Bg,
-                               const float* __restrict__ Bc, Core gw,
-                               Core cw, Rows rg, Rows rc, Shape sh) {
-  const long M = (long)sh.n * sh.S;
-  const long m = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (m >= M) return;
-  const long ray = m / sh.S;
-  const int s = (int)(m % sh.S);
-  const int S = sh.S, u = sh.u, C = sh.C;
-  const float* rp = row + ray * sh.D;
-  const int o_pts = S, o_pm = 4 * S + 7, o_wm = 5 * S + 7;
-  const bool pm = rp[o_pm + s] > 0.5f;
-  const float* wm = rp + o_wm + s * u;
-  const float* ur = uf + ray * sh.ufw;
-  for (int ch = 0; ch < C; ++ch) {
-    float acc = 0.0f;
-    for (int j = 0; j < u; ++j) acc = fmaf(wm[j], ur[j * sh.fstride + ch],
-                                           acc);
-    rg.Cf[(long)ch * M + m] = pm ? acc : 0.0f;
-  }
-  if (sh.with_color) {
-    for (int ch = 0; ch < C; ++ch) {
-      float acc = 0.0f;
-      for (int j = 0; j < u; ++j)
-        acc = fmaf(wm[j], ur[j * sh.fstride + C + ch], acc);
-      rc.Cf[(long)ch * M + m] = pm ? acc : 0.0f;
-    }
-  }
-  const float p[3] = {rp[o_pts + 3 * s], rp[o_pts + 3 * s + 1],
-                      rp[o_pts + 3 * s + 2]};
-  embed_fwd(p, Bg, false, rg, gw.emb, m, M);
-  trunk_fwd(gw, rg, 0, m, M);
-  if (sh.with_color) {
-    embed_fwd(p, Bc, true, rc, cw.emb, m, M);
-    trunk_fwd(cw, rc, 1, m, M);
-  }
-}
 
 // Pass 2: one thread per ray.  Compositor, affine, per-ray losses; with
 // `backward`, the compositor backward writes the trunk output cotangents
@@ -239,9 +199,10 @@ __device__ void tile_mix(const float* __restrict__ row,
   }
 }
 
-// Pass 1 of kernel #3: a tile of TC_TM samples per block, m = ray*S + s.
-// Both trunk forwards on tensor cores; with wgrads the colour trunk's
-// layer inputs go to its rows too.
+// Pass 1 of both kernels: a tile of TC_TM samples per block, m = ray*S + s.
+// Both trunk forwards on tensor cores; the outputs go to the G rows, the
+// pre-activations to the A rows where they are given (kernel #3), and with
+// wgrads the colour trunk's layer inputs to its rows too.
 __global__ void __launch_bounds__(TC_THREADS)
     ml_fwd_tiles(const float* __restrict__ row, const float* __restrict__ uf,
                  const float* __restrict__ Bg, const float* __restrict__ Bc,
@@ -344,13 +305,56 @@ __global__ void loss_reduce(const float* __restrict__ ray_loss, long n,
   }
 }
 
-// Floats of scratch the entry point needs for n rays of S samples.
-extern "C" long hp_maploss_scratch_floats(int n, int S, int C, int emb_g,
-                                          int hid_g, int emb_c, int hid_c,
-                                          int nb, int with_color) {
+// The scratch table: rows of M floats for what a later pass reads back.
+// Both kernels: the trunk outputs (G: 1 geometry row, 3 colour rows), which
+// pass 2 reads and, for kernel #3, overwrites with their cotangents.
+// Kernel #3 also: both trunks' pre-activations (A, read by tc_trunk_bwd),
+// the feature cotangents (DC, read by pass 4) and, with the weight
+// gradients (wg), the colour trunk's embedding, feature, block outputs and
+// dL/dh (E, Cf, H, DH).  Nothing else is written.  Returns the number of
+// rows; with base, also the two trunks' Rows over it (unused rows null).
+static long ml_layout(float* base, long M, int C, int hid_g, int emb_c,
+                      int hid_c, int nb, bool colour, bool backward,
+                      bool wg, Rows* rg, Rows* rc) {
+  long rows = 0;
+  auto take = [&](long k) {
+    float* p = base ? base + rows * M : nullptr;
+    rows += k;
+    return p;
+  };
+  Rows g = {}, c = {};
+  g.G = take(1);
+  if (colour) c.G = take(3);
+  if (backward) {
+    g.A = take((long)nb * hid_g);
+    g.DC = take(C);
+    if (colour) {
+      c.A = take((long)nb * hid_c);
+      c.DC = take(C);
+      if (wg) {
+        c.E = take(emb_c);
+        c.Cf = take(C);
+        c.H = take((long)nb * hid_c);
+        c.DH = take((long)nb * hid_c);
+      }
+    }
+  }
+  if (rg) *rg = g;
+  if (rc) *rc = c;
+  return rows;
+}
+
+// Floats of scratch the entry point needs for n rays of S samples: the
+// rows of ml_layout, then the per-ray loss partials (2 per ray) and two
+// spare floats.
+extern "C" long hp_maploss_scratch_floats(int n, int S, int C, int hid_g,
+                                          int emb_c, int hid_c, int nb,
+                                          int with_color, int backward,
+                                          int need_wgrads) {
   const long M = (long)n * S;
-  long rows = trunk_rows(emb_g, hid_g, C, nb, 1);
-  if (with_color) rows += trunk_rows(emb_c, hid_c, C, nb, 3);
+  const long rows = ml_layout(nullptr, M, C, hid_g, emb_c, hid_c, nb,
+                              with_color, backward,
+                              with_color && need_wgrads, nullptr, nullptr);
   return rows * M + 2L * n + 2L;
 }
 
@@ -362,7 +366,7 @@ extern "C" long hp_maploss_scratch_floats(int n, int S, int C, int emb_g,
 // gw / cw: host arrays of device pointers to the geometry / colour core
 // tensors in flatten_core order.  scratch holds
 // hp_maploss_scratch_floats(...) floats; wpart holds wsplits times the
-// colour core's element count (every weight and bias).  Kernel #3 needs
+// colour core's element count (every weight and bias).  Both kernels need
 // hid_g, hid_c and C to be multiples of 8.  Returns the first CUDA error.
 extern "C" int hp_maploss(
     const float* row, int D, const float* uf, int ufw, const float* okf,
@@ -375,20 +379,18 @@ extern "C" int hp_maploss(
     int wsplits, void* stream) {
   if (n <= 0) return 0;
   if (S > HP_MAXS || nb > HP_MAXB || S < 1) return (int)cudaErrorInvalidValue;
+  if (hid_g % 8 || hid_c % 8 || C % 8) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const long M = (long)n * S;
   Core gcore = make_core(gw, nb, skip, emb_g, hid_g, C, 1);
   Core ccore;
   if (with_color) ccore = make_core(cw, nb, skip, emb_c, hid_c, C, 3);
   else ccore = gcore;
-  Rows rg = make_rows(scratch, M, emb_g, hid_g, C, nb, 1);
-  float* next = scratch + trunk_rows(emb_g, hid_g, C, nb, 1) * M;
-  Rows rc = rg;
-  if (with_color) {
-    rc = make_rows(next, M, emb_c, hid_c, C, nb, 3);
-    next += trunk_rows(emb_c, hid_c, C, nb, 3) * M;
-  }
-  float* ray_loss = next;
+  const int wg = backward && with_color && need_wgrads;
+  Rows rg, rc;
+  float* ray_loss = scratch + ml_layout(scratch, M, C, hid_g, emb_c, hid_c,
+                                        nb, with_color, backward, wg, &rg,
+                                        &rc) * M;
   Shape sh;
   sh.n = n; sh.S = S; sh.u = u; sh.C = C; sh.D = D; sh.ufw = ufw;
   sh.fstride = with_color ? 2 * C : C;
@@ -400,20 +402,12 @@ extern "C" int hp_maploss(
   const TcSmem sm = tc_smem(round8(emb_g), hid_g, round8(emb_c), hid_c, C,
                             with_color != 0);
   const int smem = sm.total * (int)sizeof(float);
-  const int wg = with_color && need_wgrads;
-  cudaError_t e;
-  if (backward) {
-    if (hid_g % 8 || hid_c % 8 || C % 8) return (int)cudaErrorInvalidValue;
-    int rc1 = tc_smem_attr(ml_fwd_tiles, smem);
-    if (!rc1) rc1 = tc_smem_attr(ml_bwd_tiles, smem);
-    if (rc1) return rc1;
-    ml_fwd_tiles<<<gt, TC_THREADS, smem, st>>>(row, uf, Bg, Bc, gcore, ccore,
-                                               rg, rc, sh, sm, wg);
-  } else {
-    ml_fwd_samples<<<(unsigned)((M + TB - 1) / TB), TB, 0, st>>>(
-        row, uf, Bg, Bc, gcore, ccore, rg, rc, sh);
-  }
-  e = cudaGetLastError();
+  int rc1 = tc_smem_attr(ml_fwd_tiles, smem);
+  if (!rc1 && backward) rc1 = tc_smem_attr(ml_bwd_tiles, smem);
+  if (rc1) return rc1;
+  ml_fwd_tiles<<<gt, TC_THREADS, smem, st>>>(row, uf, Bg, Bc, gcore, ccore,
+                                             rg, rc, sh, sm, wg);
+  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   ml_rays<<<(unsigned)((n + TB - 1) / TB), TB, 0, st>>>(
       row, okf, aff, rg, rc, sh, backward, ray_loss, daff);

@@ -1,23 +1,19 @@
-// NICER decoder trunks, one sample per thread: the trunk forward of the
-// one kernel not yet on the tensor-core tiles of nicer_trunk_tc.cuh, the
-// mapping-loss forward of maploss.cu (kernel #2).  The structs, the scratch
-// row layout, the activations and the Fourier projection here are shared
-// by the tile code too.
+// NICER decoder trunks: the structs, the scratch row layout, the
+// activations and the Fourier projection that the tensor-core tiles of
+// nicer_trunk_tc.cuh are built on.  All nine kernels run their trunks on
+// those tiles; nothing here computes a trunk itself.
 //
 // Device code for the two trunks of hpslam_tpu/ops/fused_mlp.py
-// (`_trunk_fwd_block` :140, `_embed_geo` / `_embed_col` :203-217): the
+// (`_trunk_fwd_block` :142, `_embed_geo` / `_embed_col` :204-218): the
 // ReLU geometry trunk and the Softplus(beta=100) colour trunk, each
 // n_blocks x [linear -> act -> + c F + f] with the embedding concatenated
 // after block `skip`, then a linear output layer.
 //
-// Layout.  Every intermediate of a sample lives in a scratch table of rows
-// of length M (the number of samples): row t of a quantity holds its t-th
-// component for every sample, so a warp's 32 samples touch 32 consecutive
-// floats.  Weights are read from global memory (L2): the 128-wide colour
-// core does not fit one block's shared memory whole, and every thread of a
-// warp reads the same weight at the same time, so each read is one
-// broadcast transaction.  Hidden widths are walked by loops that are not
-// unrolled; only the 16-wide accumulator chunk is.
+// Layout.  An intermediate that a later pass reads back lives in a scratch
+// table of rows of length M (the number of samples): row t of a quantity
+// holds its t-th component for every sample, so a warp's 32 samples touch
+// 32 consecutive floats.  Each kernel lays out only the rows it reads back
+// (Rows, unused rows null).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -25,7 +21,6 @@
 
 #define HP_MAXB 8    // most trunk blocks supported
 #define HP_MAXS 16   // most samples per ray supported
-#define HP_CH 16     // accumulator chunk (the only unrolled width)
 
 struct Core {
   const float* W[HP_MAXB];
@@ -37,7 +32,8 @@ struct Core {
   int nb, skip, emb, hid, cdim, nout;
 };
 
-// Row offsets of one trunk's scratch block (each row holds M floats).
+// One trunk's rows in a kernel's scratch table (each row holds M floats;
+// null where the kernel keeps none).
 struct Rows {
   float* E;    // emb rows: Fourier embedding
   float* Cf;   // cdim rows: interpolated feature
@@ -47,26 +43,6 @@ struct Rows {
   float* G;    // nout rows: trunk output, then its cotangent
   float* DC;   // cdim rows: cotangent of the feature
 };
-
-// Rows of one trunk's block.
-__host__ __device__ inline long trunk_rows(int emb, int hid, int cdim,
-                                           int nb, int nout) {
-  return (long)emb + cdim + 3L * nb * hid + nout + cdim;
-}
-
-__host__ __device__ inline Rows make_rows(float* base, long M, int emb,
-                                          int hid, int cdim, int nb,
-                                          int nout) {
-  Rows r;
-  r.E = base;
-  r.Cf = r.E + (long)emb * M;
-  r.A = r.Cf + (long)cdim * M;
-  r.H = r.A + (long)nb * hid * M;
-  r.DH = r.H + (long)nb * hid * M;
-  r.G = r.DH + (long)nb * hid * M;
-  r.DC = r.G + (long)nout * M;
-  return r;
-}
 
 __device__ __forceinline__ float act_f(int code, float a) {
   if (code == 0) return fmaxf(a, 0.0f);
@@ -98,51 +74,6 @@ __device__ __forceinline__ float fourier_proj(const float tp[3],
                    __fmul_rn(tp[2], B[2 * nk + k]));
 }
 
-// Embedding rows of sample m at the point p: sin(proj) for the geometry
-// trunk (B has emb columns), [sin(proj) | cos(proj)] for the colour trunk
-// (B has emb/2 columns).
-__device__ void embed_fwd(const float p[3], const float* B, bool with_cos,
-                          const Rows& r, int emb, long m, long M) {
-  const float tp[3] = {p[0] * 6.2831855f, p[1] * 6.2831855f,
-                       p[2] * 6.2831855f};
-  const int nk = with_cos ? emb / 2 : emb;
-  for (int k = 0; k < nk; ++k) {
-    const float pr = fourier_proj(tp, B, nk, k);
-    r.E[(long)k * M + m] = sinf(pr);
-    if (with_cos) r.E[(long)(nk + k) * M + m] = cosf(pr);
-  }
-}
-
-// out[j] (+)= sum_t x(t) * W[t*nout + j] + bias[j] for j < nout, where x(t)
-// is row t of segment 1 for t < n1 and row t-n1 of segment 2 otherwise.
-__device__ void dense_fwd(const float* x1, int n1, const float* x2, int n2,
-                          const float* W, const float* bias, int nout,
-                          float* out, bool accumulate, long m, long M) {
-  const int nin = n1 + n2;
-  for (int j0 = 0; j0 < nout; j0 += HP_CH) {
-    float acc[HP_CH];
-#pragma unroll
-    for (int q = 0; q < HP_CH; ++q) acc[q] = 0.0f;
-    for (int t = 0; t < nin; ++t) {
-      const float xv = t < n1 ? x1[(long)t * M + m]
-                             : x2[(long)(t - n1) * M + m];
-      const float* w = W + (long)t * nout + j0;
-#pragma unroll
-      for (int q = 0; q < HP_CH; ++q)
-        if (j0 + q < nout) acc[q] = fmaf(xv, w[q], acc[q]);
-    }
-#pragma unroll
-    for (int q = 0; q < HP_CH; ++q) {
-      if (j0 + q < nout) {
-        float v = acc[q];
-        if (bias) v += bias[j0 + q];
-        float* o = out + (long)(j0 + q) * M + m;
-        *o = accumulate ? *o + v : v;
-      }
-    }
-  }
-}
-
 // Input segments of layer i (i == nb is the output layer).
 __host__ __device__ inline void layer_input(const Core& w, const Rows& r,
                                             long M, int i, const float** x1,
@@ -157,30 +88,6 @@ __host__ __device__ inline void layer_input(const Core& w, const Rows& r,
     *x1 = r.H + (long)(i - 1) * w.hid * M; *n1 = w.hid;
     *x2 = nullptr; *n2 = 0;
   }
-}
-
-// Trunk forward for sample m; E and Cf rows are filled, the output goes to
-// the G rows.
-__device__ void trunk_fwd(const Core& w, const Rows& r, int code, long m,
-                          long M) {
-  for (int i = 0; i < w.nb; ++i) {
-    const float *x1, *x2;
-    int n1, n2;
-    layer_input(w, r, M, i, &x1, &n1, &x2, &n2);
-    float* Ai = r.A + (long)i * w.hid * M;
-    float* Hi = r.H + (long)i * w.hid * M;
-    dense_fwd(x1, n1, x2, n2, w.W[i], w.b[i], w.hid, Ai, false, m, M);
-    // h_i = (act(a_i) + c F_i) + f_i, the reference's order of additions
-    dense_fwd(r.Cf, w.cdim, nullptr, 0, w.F[i], nullptr, w.hid, Hi, false,
-              m, M);
-    for (int j = 0; j < w.hid; ++j)
-      Hi[(long)j * M + m] = (act_f(code, Ai[(long)j * M + m])
-                             + Hi[(long)j * M + m]) + w.f[i][j];
-  }
-  const float *x1, *x2;
-  int n1, n2;
-  layer_input(w, r, M, w.nb, &x1, &n1, &x2, &n2);
-  dense_fwd(x1, n1, x2, n2, w.Wout, w.bout, w.nout, r.G, false, m, M);
 }
 
 // Core from a host array of device pointers in flatten_core order:

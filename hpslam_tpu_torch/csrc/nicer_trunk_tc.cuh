@@ -1,10 +1,11 @@
 // NICER decoder trunks on Hopper's tensor cores, a tile of samples per
-// block, shared by the mapping-loss backward of maploss.cu (kernel #3), the
-// trunk pair of trunks.cu (kernels #4 and #5), the composite pair of
-// composite.cu (kernels #6 and #7) and the tracker-loss pair of
-// trackloss.cu (kernels #8 and #9).  #4 and #6 run one device function for
-// their samples (tc_trunks_fwd_tile), #5 and #7 another
-// (tc_trunks_bwd_tile), so that the pairs cannot drift apart.
+// block: the trunks of all nine kernels but the row top-k (#1), that is the
+// mapping-loss pair of maploss.cu (kernels #2 and #3, one tile forward for
+// both), the trunk pair of trunks.cu (#4 and #5), the composite pair of
+// composite.cu (#6 and #7) and the tracker-loss pair of trackloss.cu (#8
+// and #9).  #4 and #6 run one device function for their samples
+// (tc_trunks_fwd_tile), #5 and #7 another (tc_trunks_bwd_tile), so that
+// the pairs cannot drift apart.
 //
 // Device code for the two trunks of hpslam_tpu/ops/fused_mlp.py
 // (`_trunk_fwd_block` :142, `_trunk_bwd_block` :170): the ReLU geometry
@@ -37,8 +38,9 @@
 //     for the activation's derivative), the trunk output, and for the
 //     weight gradients the layer inputs, dA_i, dH_i and the output
 //     cotangent.  A forward that nothing reads back (kernels #4, #6)
-//     stores no row at all; the trunk backwards (#5, #7) keep only those
-//     rows (tc_bwd_rows).
+//     stores no row at all, the mapping-loss forward (#2) only the trunk
+//     outputs; the backwards keep only the rows they read back (#5 and #7
+//     tc_bwd_rows, #3 ml_layout in maploss.cu).
 //   * Weight gradients X^T dY over the M samples are one launch for every
 //     weight of the core: 64 x 64 output tiles on the same 3xTF32 mma, the
 //     samples split into fixed ranges that depend on the shape only, the

@@ -6,9 +6,10 @@ CUDA tensors, launches its kernel or raises.
 * ``nicer_fused_maploss`` (reference :1365): the union path's
   whole-iteration mapping loss, kernels #2 and #3 (``csrc/maploss.cu``):
   the forward (losses only, replacing `_maploss_fwd_kernel`) and the
-  combined forward-plus-cotangents (replacing `_maploss_bwd_kernel`), whose
-  trunk passes and weight gradients run on the tensor cores at f32
-  accuracy (``csrc/nicer_trunk_tc.cuh``).
+  combined forward-plus-cotangents (replacing `_maploss_bwd_kernel`).  Both
+  run one tile forward, and the combined form its trunk backwards and
+  weight gradients, on the tensor cores at f32 accuracy
+  (``csrc/nicer_trunk_tc.cuh``).
   Under autograd the combined kernel is the only launch:
   ``_MapLoss.forward`` runs it and stashes the cotangents,
   ``_MapLoss.backward`` scales them by the incoming cotangent, as the
@@ -195,13 +196,13 @@ def launch_maploss(uf, aff, col_flat, row, okf, geo_flat, Bs, n_blocks,
     dev = row.device
     hid_g, hid_c = geo_flat[0].shape[1], col_flat[0].shape[1]
     emb_g, emb_c = Bg.shape[1], 2 * Bc.shape[1]
-    if backward:
-        _check_tc_widths("maploss", hid_g, hid_c, C)
+    _check_tc_widths("maploss", hid_g, hid_c, C)
     lib = lib or _cuda.lib("maploss")
     if stream is None:
         stream = torch.cuda.current_stream(dev).cuda_stream
-    n_scr = lib.hp_maploss_scratch_floats(n, S, C, emb_g, hid_g, emb_c,
-                                          hid_c, n_blocks, int(with_color))
+    n_scr = lib.hp_maploss_scratch_floats(n, S, C, hid_g, emb_c, hid_c,
+                                          n_blocks, int(with_color),
+                                          int(backward), int(need_wgrads))
     scratch = torch.empty((n_scr,), dtype=torch.float32, device=dev)
     losses = torch.zeros((2,), dtype=torch.float32, device=dev)
     duf = daff = wpart = None

@@ -110,7 +110,9 @@ def test_maploss_kernels_match_plain(cuda, with_color, n, need_wgrads):
     """Kernels #2 and #3 against the plain version under autograd: colour
     and geometry only, a ragged n (4001 rays, 20005 samples: not a multiple
     of the 64-sample tile) and colour without the weight gradients; two
-    launches of kernel #3 on the same inputs agree bit for bit."""
+    launches of each kernel on the same inputs agree bit for bit, and
+    kernel #2's scratch holds only the trunk outputs and the per-ray
+    partials."""
     mcfg, row, uf, okf, aff, geo, col, Bs = _maploss_case(cuda, with_color,
                                                           n=n)
     kw = dict(n_blocks=mcfg.n_blocks, skip=mcfg.skip, with_color=with_color,
@@ -133,6 +135,16 @@ def test_maploss_kernels_match_plain(cuda, with_color, n, need_wgrads):
         glf, clf = FM.nicer_fused_maploss(uf, aff, col, row, okf, geo, Bs,
                                           w_color=0.1, **kw)
         assert _cuda.LAUNCHES["maploss_fwd"] == before + 1
+        glf2, clf2 = FM.nicer_fused_maploss(uf, aff, col, row, okf, geo, Bs,
+                                            w_color=0.1, **kw)
+    assert torch.equal(glf, glf2) and torch.equal(clf, clf2)
+    # kernel #2 keeps only the trunk outputs: 1 geometry row and 3 colour
+    # rows of M samples, then the per-ray loss partials
+    M = n * kw["S"]
+    scratch = _cuda.lib("maploss").hp_maploss_scratch_floats(
+        n, kw["S"], kw["C"], geo[0].shape[1], 2 * Bs[1].shape[1],
+        col[0].shape[1], kw["n_blocks"], int(with_color), 0, 0)
+    assert scratch == (4 if with_color else 1) * M + 2 * n + 2
     for a, b in ((glk, glp), (clk, clp), (glf, glp), (clf, clp)):
         a, b = float(a.detach()), float(b.detach())
         assert abs(a - b) <= 1e-4 * max(abs(b), 1e-6)

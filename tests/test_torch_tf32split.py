@@ -1,4 +1,4 @@
-"""The 3xTF32 arithmetic of the tensor-core trunk kernels (#3-9,
+"""The 3xTF32 arithmetic of the tensor-core trunk kernels (#2-9,
 hpslam_tpu_torch/csrc/nicer_trunk_tc.cuh), emulated in plain PyTorch on
 the CPU, against the port's f32 plain trunk and the reference's
 _trunk_fwd_block / _trunk_bwd_block (hpslam_tpu/ops/fused_mlp.py) at
@@ -7,7 +7,9 @@ through the emulated products, then the embedding and weight routes of
 d(point) and d(rays), held to chip_smoke.check_drays's rule against
 trackloss_plain in float64; the composite and tracker-loss forwards
 (#6, #8) as a whole, held to the rule that chip_smoke.py's composite and
-trackloss phases apply against composite_plain and trackloss_plain; and
+trackloss phases apply against composite_plain and trackloss_plain; the
+mapping-loss forward (#2) as a whole, held to the maploss phase's
+LOSS_RTOL against maploss_plain and the reference's Pallas forward; and
 the composite backward (#7) as a whole (#6's tile forward, the
 compositor backward, #5's tile backward), held to the composite phase's
 rule against composite_bwd_plain.
@@ -188,13 +190,14 @@ def test_3xtf32_trunk_matches_f32_references(trunk):
     assert worst1[0] > GRAD_REL_FRO, msg
 
 
-@pytest.mark.parametrize("kernel", ["maploss", "trunks", "trunks_fwd",
-                                    "trackloss", "trackloss_fwd",
-                                    "composite_fwd", "composite_bwd"])
+@pytest.mark.parametrize("kernel", ["maploss", "maploss_fwd", "trunks",
+                                    "trunks_fwd", "trackloss",
+                                    "trackloss_fwd", "composite_fwd",
+                                    "composite_bwd"])
 def test_tensor_core_kernels_reject_widths_off_the_mma_grid(kernel):
-    """Kernels #3, #5, #4, #9, #8, #6 and #7 tile every width by the mma's
-    8: their launchers refuse a hidden width that is not a multiple of 8
-    before building or launching anything."""
+    """Kernels #3, #2, #5, #4, #9, #8, #6 and #7 tile every width by the
+    mma's 8: their launchers refuse a hidden width that is not a multiple
+    of 8 before building or launching anything."""
     n, C, nb = 4, 8, 2
     geo = [torch.zeros(s) for s in [(16, 12), (12,), (28, 12), (12,)]
            + [(C, 12), (12,)] * nb + [(12, 1), (1,)]]
@@ -202,14 +205,15 @@ def test_tensor_core_kernels_reject_widths_off_the_mma_grid(kernel):
            + [(C, 16), (16,)] * nb + [(16, 3), (3,)]]
     Bs = (torch.zeros((3, 16)), torch.zeros((3, 4)))
     with pytest.raises(ValueError, match="multiples of 8"):
-        if kernel == "maploss":
+        if kernel.startswith("maploss"):
             S, u = 2, 2
+            bwd = kernel == "maploss"
             row = torch.zeros((n, 5 * S + 7 + S * u + u))
             tFM.launch_maploss(torch.zeros((n, u * 2 * C)),
                                torch.zeros((n, 12)), col, row,
                                torch.ones((n, 1)), geo, Bs, nb, 0, True, S,
-                               u, C, 0.1, True, False, 0.1, backward=True,
-                               need_wgrads=True)
+                               u, C, 0.1, True, False, 0.1, backward=bwd,
+                               need_wgrads=bwd)
         elif kernel == "trunks":
             tFM.launch_trunks(torch.zeros((n, 3)), torch.zeros((n, C)),
                               torch.zeros((n, C)), Bs, geo, col, nb, 0, True,
@@ -504,18 +508,149 @@ def emulated_trackloss(I, static, mm):
     return d, v, c
 
 
+def _map_inputs(seed=9, n=N_RAYS, S=5, u=8, C=32, nb=5, skip=2):
+    """The mapping loss's operating point as chip_smoke.maploss_inputs
+    builds it (rays at 2-2.5 m, samples around them, a tenth padded, u
+    union slots with normalised weights, a twentieth of the rays not ok,
+    near-identity exposure affines), at the model's full widths, made with
+    numpy.  uf holds both trunks' features (u * 2C); the geometry-only
+    stage takes the first C of each slot."""
+    rng = np.random.default_rng(seed)
+    geo, Bg = _core(rng, 93, 32, 1, 25.0, False, nb, skip, C)
+    col, Bc = _core(rng, 20, 128, 3, 32.0, True, nb, skip, C)
+    z = rng.uniform(2.0, 2.5, (n, 1)) * np.linspace(0.96, 1.04, S)
+    rd = rng.normal(size=(n, 3))
+    pts = rd[:, None] * z[..., None] + 0.01 * rng.normal(size=(n, S, 3))
+    d_gt = z[:, S // 2:S // 2 + 1] * (1 + 0.02 * rng.normal(size=(n, 1)))
+    pm = rng.uniform(size=(n, S)) > 0.1
+    Wm = rng.uniform(size=(n, S, u))
+    Wm = (Wm / Wm.sum(-1, keepdims=True)).reshape(n, S * u)
+    row = np.concatenate([z, pts.reshape(n, 3 * S), rd, d_gt,
+                          rng.uniform(size=(n, 3)), pm, Wm,
+                          np.zeros((n, u))], 1)
+    aff = np.concatenate([np.tile(np.eye(3).reshape(1, 9), (n, 1))
+                          + 0.05 * rng.normal(size=(n, 9)),
+                          0.05 * rng.normal(size=(n, 3))], 1)
+    return dict(row=_t(row), uf=_t(0.1 * rng.normal(size=(n, u * 2 * C))),
+                okf=_t(rng.uniform(size=(n, 1)) > 0.05), aff=_t(aff),
+                geo=[_t(w) for w in geo], col=[_t(w) for w in col],
+                Bs=(_t(Bg), _t(Bc)), static=(nb, skip, S, u, C))
+
+
+def _map_uf(I, with_color):
+    """uf of the stage: both trunks' features, or the geometry's alone."""
+    u, C = I["static"][3:]
+    uf = I["uf"]
+    return uf if with_color else \
+        uf.reshape(uf.shape[0], u, 2 * C)[..., :C].reshape(uf.shape[0], -1)
+
+
+def emulated_maploss(I, with_color, sigmoid_rgb, use_affine, mm):
+    """Kernel #2's (geo_loss, col_loss) with both trunks' products through
+    ``mm``: the union mix and the embeds, the tile forward (ml_fwd_tiles),
+    then the compositor, the affine and the masked L1 per ray (ml_rays,
+    scalar f32) and their sums (loss_reduce)."""
+    nb, skip, S, u, C = I["static"]
+    row, (Bg, Bc) = I["row"], I["Bs"]
+    n = row.shape[0]
+    o = tFM.row_offsets(S, u)
+    p = row[:, o["pts"]:o["pts"] + 3 * S].reshape(n * S, 3)
+    pm = row[:, o["pm"]:o["pm"] + S] > 0.5
+    Wm = row[:, o["wm"]:o["wm"] + S * u].reshape(n, S, u)
+    ufr = _map_uf(I, with_color).reshape(n, u, -1)
+
+    def mix(c0):
+        return torch.where(pm[..., None], torch.einsum(
+            "nsu,nuc->nsc", Wm, ufr[..., c0:c0 + C]), 0.0).reshape(n * S, C)
+    trunks = [(fourier_features(p, Bg, concat_cos=False), mix(0), I["geo"],
+               0, 1)]
+    if with_color:
+        trunks.append((fourier_features(p, Bc, concat_cos=True), mix(C),
+                       I["col"], 1, 3))
+    outs = _trunk_outputs(trunks, nb, skip, mm)
+    rgb = torch.zeros((n, S, 3))
+    if with_color:
+        rgb = outs[1].reshape(n, S, 3)
+        rgb = torch.sigmoid(rgb) if sigmoid_rgb else rgb
+    alpha = torch.sigmoid(0.1 * torch.where(pm, outs[0][:, 0].reshape(n, S),
+                                            -100.0))
+    ts, t_run = [], torch.ones(n)
+    for s_ in range(S):
+        ts.append(t_run)
+        t_run = t_run * ((1.0 - alpha[:, s_]) + 1e-10)
+    w = alpha * torch.stack(ts, 1)
+    wsum = torch.sum(w, 1) + 1e-10
+    depth = torch.sum(w * row[:, :S], 1) / wsum
+    color = torch.sum(w[..., None] * rgb, 1) / wsum[:, None]
+    if use_affine and with_color:
+        a = I["aff"]
+        color = torch.sigmoid(torch.stack([
+            color[:, 0] * a[:, d] + color[:, 1] * a[:, 3 + d]
+            + color[:, 2] * a[:, 6 + d] + a[:, 9 + d] for d in range(3)], 1))
+    mask = (I["okf"][:, 0] > 0.5) & (torch.sum(pm, 1) >= S // 2 + 1) \
+        & torch.isfinite(depth)
+    gl = torch.sum(torch.where(mask, torch.abs(row[:, o["d_gt"]] - depth),
+                               0.0))
+    cl = torch.sum(torch.where(mask[:, None], torch.abs(
+        row[:, o["c_gt"]:o["c_gt"] + 3] - color), 0.0)) if with_color \
+        else torch.zeros(())
+    return gl, cl
+
+
+def _maploss_fwd_readings(cs, case):
+    """Kernel #2's emulated losses against maploss_plain and the
+    reference's nicer_fused_maploss forward (its Pallas kernel #2 in
+    interpret mode), each within the smoke's LOSS_RTOL; the two f32
+    references agree with each other first."""
+    I = _map_inputs()
+    with_color = case != "geometry only"
+    use_affine = case == "colour, affine"
+    nb, skip, S, u, C = I["static"]
+    uf = _map_uf(I, with_color)
+    args = (nb, skip, with_color, S, u, C, 0.1, not use_affine, use_affine)
+    k = emulated_maploss(I, with_color, not use_affine, use_affine, mm3)
+    p = tFM.maploss_plain(uf, I["aff"], I["col"], I["row"], I["okf"],
+                          I["geo"], I["Bs"], *args)
+
+    def j(x):
+        return jnp.asarray(x.numpy())
+    r = jFM.nicer_fused_maploss(
+        j(uf), j(I["aff"]), tuple(j(w) for w in I["col"]), j(I["row"]),
+        j(I["okf"]), tuple(j(w) for w in I["geo"]),
+        (j(I["Bs"][0]), j(I["Bs"][1])), *args, 0.1)
+    readings = {}
+    for name, a, b, c in zip(("gl", "cl"), k, p, r):
+        a, b, c = float(a), float(b), float(c)
+        if name == "cl" and not with_color:
+            assert a == b == c == 0.0
+            continue
+        rel_ref = abs(b - c) / abs(c)
+        rel = max(abs(a - b) / abs(b), abs(a - c) / abs(c))
+        readings[name] = (rel, rel_ref)
+        assert rel_ref <= cs.LOSS_RTOL, (name, rel_ref)
+        assert rel <= cs.LOSS_RTOL, (name, rel)
+    return readings
+
+
 @pytest.mark.parametrize("kernel,case", [
     ("composite_fwd", "colour, sigmoid"), ("composite_fwd", "colour, raw"),
     ("composite_fwd", "geometry only"), ("trackloss_fwd", "sigmoid"),
-    ("trackloss_fwd", "affine"), ("trackloss_fwd", "exp weights")])
+    ("trackloss_fwd", "affine"), ("trackloss_fwd", "exp weights"),
+    ("maploss_fwd", "colour, sigmoid"), ("maploss_fwd", "colour, affine"),
+    ("maploss_fwd", "geometry only")])
 def test_3xtf32_forward_meets_smoke_tolerances(kernel, case):
-    """Kernels #6 and #8 with 3xTF32 trunk products, at the full model
-    width on 300 rays x 5 samples: depth, var and colour against the f32
-    plain version (composite_plain, trackloss_plain) by the rule the
-    smoke's composite and trackloss phases apply (chip_smoke.compare_grads:
-    relative Frobenius distance 1e-4, and 1e-3 of the largest magnitude
-    entry by entry for all but 1e-4 of the entries)."""
+    """Kernels #6, #8 and #2 with 3xTF32 trunk products, at the full model
+    width on 300 rays x 5 samples.  #6 and #8: depth, var and colour
+    against the f32 plain version (composite_plain, trackloss_plain) by
+    the rule the smoke's composite and trackloss phases apply
+    (chip_smoke.compare_grads: relative Frobenius distance 1e-4, and 1e-3
+    of the largest magnitude entry by entry for all but 1e-4 of the
+    entries).  #2: both losses within the maploss phase's LOSS_RTOL of
+    maploss_plain and of the reference's Pallas forward."""
     cs = _chip_smoke()
+    if kernel == "maploss_fwd":
+        print(kernel, case, _maploss_fwd_readings(cs, case))
+        return
     if kernel == "composite_fwd":
         I = _comp_inputs()
         with_color = case != "geometry only"
