@@ -4,6 +4,7 @@
     python3 chip_smoke.py                  # every phase, one card
     python3 chip_smoke.py --phases device,build,topk,maploss
     python3 chip_smoke.py --phases device,build,trunks,trackloss
+    python3 chip_smoke.py --phases device,build,band      # ATE band, ~7 min
 
 Phases, each printed as one JSON line when it starts and when it ends:
   device   nvidia-smi's name and power limit, torch's device name
@@ -55,6 +56,17 @@ Phases, each printed as one JSON line when it starts and when it ends:
   slam_mesh  the same run with mesh: "dp1" inside a world-1 NCCL process
            group that the smoke opens and closes: the dp-mesh tracker and
            union mapping through the fused composite (kernels #6, #5)
+  slam_tum  configs/TUM_RGBD/freiburg1_desk.yaml on a TUM RGB-D tree the
+           smoke writes (8 frames of the synthetic room rendered at the
+           config's 480x640 intrinsics, PNG through the port's writer with
+           libpng's adaptive row filters), distortion zeroed and iterations
+           cut (TUM_CUTS); first the decoded first frame against the
+           rendered one, and the reader's and the PNG decode's times; the
+           per-sample mapper with rel-pos colour: #1 and none of the fused
+           kernels
+  slam_ba  the slam run with mapping.BA on and keyframes and mappings
+           every 2nd frame, so that the last mapping bundle-adjusts: the
+           per-sample mapper in tracker mode on the fused trunks (#4-5)
   repeat   the deterministic scatter-add (ops.interpolate.index_add_rows)
            three times on the same inputs, bitwise; then every SLAM run of
            this process again, whose trajectory and ATE must equal the
@@ -62,6 +74,9 @@ Phases, each printed as one JSON line when it starts and when it ends:
   kernels  one JSON line describing every ported kernel, with its bound
            at the f32 rate (bound_ms) and with the operations on the
            tensor cores at f32 accuracy (tc_bound_ms, 3xTF32)
+  band     (only when named in --phases) synth_tpu.yaml and
+           synth_noisy.yaml for all 30 frames at seeds 0, 1, 2 on the slam
+           and slam_fused paths: each ATE beside the reference's band
 
 The last line is {"ok": true, "device": {...}}, printed only when every
 phase passed; any failure exits non-zero.  Without CUDA, or without the
@@ -83,8 +98,9 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ["device", "build", "topk", "maploss", "trunks", "trackloss",
-          "composite", "slam", "slam_fused", "slam_mesh", "repeat",
-          "kernels"]
+          "composite", "slam", "slam_fused", "slam_mesh", "slam_tum",
+          "slam_ba", "repeat", "kernels"]
+SLAM_PHASES = ["slam", "slam_fused", "slam_mesh", "slam_tum", "slam_ba"]
 
 # H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -1437,6 +1453,13 @@ PROFILE_KERNELS = {
     "slam_fused": (("tl_fwd_tiles", "tl_rays", "tl_bwd_tiles"),
                    ("tl_fwd_samples",)),
     "slam_mesh": (("cp_fwd_tiles", "cp_rays"), ("cp_samples",)),
+    "slam_tum": (("topk_rows_lists",),
+                 ("ml_fwd_tiles", "ml_bwd_tiles", "tr_fwd_tiles",
+                  "tr_bwd_tiles", "tl_fwd_tiles", "tl_bwd_tiles",
+                  "cp_fwd_tiles", "cp_bwd_tiles")),
+    "slam_ba": (("tr_fwd_tiles", "tr_bwd_tiles", "ml_bwd_tiles"),
+                ("tl_fwd_tiles", "tl_bwd_tiles", "cp_fwd_tiles",
+                 "cp_bwd_tiles")),
 }
 
 
@@ -1491,27 +1514,93 @@ def profile_run(run_once, name: str = "") -> dict:
                             for n, (us, c) in top]}
 
 
-# kernels each SLAM run must launch (> 0) or must not launch (== 0)
+def merged(*parts: dict) -> dict:
+    """The config additions ``parts`` deep-merged, later ones winning."""
+    out: dict = {}
+    for part in parts:
+        for k, v in part.items():
+            if isinstance(v, dict) and isinstance(out.get(k), dict):
+                out[k] = merged(out[k], v)
+            else:
+                out[k] = v
+    return out
+
+
+SYNTH_CFG = "configs/Synthetic/synth_tpu.yaml"
+NO_VIS = {"tracking": {"vis_freq": 1000}, "mapping": {"vis_freq": 1000}}
+# the synthetic runs: synth_tpu.yaml cut to 10 frames, vis panels off
+SYNTH_CUTS = merged(NO_VIS, {"synthetic": {"n_frames": 10}})
+FUSED = {"tracking": {"fused_loss": True},
+         "model": {"fused_composite": False}}
+TUM_CFG = "configs/TUM_RGBD/freiburg1_desk.yaml"
+TUM_FRAMES = 8
+# slam_tum keeps freiburg1_desk.yaml's model width, 480x640 images (crop
+# edge 8), pixel budgets (tracking 5000, mapping 5000), window (10) and
+# rel-pos colour; what it cuts, each listed in its JSON line
+TUM_CUTS = {
+    "frames": f"{TUM_FRAMES} (synthetic room rendered at the config's "
+              "intrinsics)",
+    "cam.distortion": "zeros (the reference undistorts colour, not depth)",
+    "tracking.iters": "200 -> 30",
+    "mapping.iters_first": "1500 -> 150",
+    "mapping.geo_iter_first": "400 -> 40",
+    "mapping.iters": "300 -> 60",
+    "vis_freq": "50 -> 1000 (past the end)",
+}
+TUM_ADDITIONS = merged(NO_VIS, {
+    "cam": {"distortion": [0.0] * 5}, "tracking": {"iters": 30},
+    "mapping": {"iters_first": 150, "geo_iter_first": 40, "iters": 60}})
+# the fused kernels that the per-sample paths must not reach
+_MAPLOSS = ("maploss_fwd", "maploss_bwd")
+_TRACKLOSS = ("trackloss_fwd", "trackloss_bwd")
+_COMPOSITE = ("composite_fwd", "composite_bwd")
+_TRUNKS = ("trunks_fwd", "trunks_bwd")
+
+# each SLAM run: (base config, config additions, kernels it must launch
+# (> 0), kernels it must not launch (== 0))
 SLAM_RUNS = {
     # the default path: plain tracker, union mapping on the mapping loss;
     # the reference's mapper evaluates the loss only under a gradient, so
     # kernel 2 (the forward alone) is never launched on this path; it is
     # held against the plain version in the maploss phase
-    "slam": ("", ("topk_rows", "maploss_bwd"), ()),
+    "slam": (SYNTH_CFG, SYNTH_CUTS, ("topk_rows", "maploss_bwd"), ()),
     # the fused tracker render and union mapping on the fused trunks;
     # no mapping-loss launch proves that the knob routed the mapper
-    "slam_fused": ("tracking:\n  fused_loss: True\n"
-                   "model:\n  fused_composite: False\n",
-                   ("topk_rows", "trunks_fwd", "trunks_bwd", "trackloss_fwd",
-                    "trackloss_bwd"), ("maploss_bwd", "maploss_fwd")),
+    "slam_fused": (SYNTH_CFG, merged(SYNTH_CUTS, FUSED),
+                   ("topk_rows",) + _TRUNKS + _TRACKLOSS, _MAPLOSS),
     # the dp-mesh path on one card: the tracker's dp branch (no fused
     # render under a mesh) and union mapping through the fused composite
     # (kernel #6, its backward on kernel #5), never the mapping loss
-    "slam_mesh": ('mesh: "dp1"\n',
+    "slam_mesh": (SYNTH_CFG, merged(SYNTH_CUTS, {"mesh": "dp1"}),
                   ("topk_rows", "composite_fwd", "trunks_bwd"),
-                  ("maploss_bwd", "maploss_fwd", "trackloss_fwd",
-                   "trackloss_bwd", "trunks_fwd")),
+                  _MAPLOSS + _TRACKLOSS + ("trunks_fwd",)),
+    # a TUM RGB-D tree through the file reader, the per-sample mapper with
+    # rel-pos colour (plain trunks) and the plain tracker: a union mapping
+    # would launch the mapping loss, and nothing else reaches the fused
+    # kernels on this config
+    "slam_tum": (TUM_CFG, TUM_ADDITIONS, ("topk_rows",),
+                 _MAPLOSS + _TRUNKS + _TRACKLOSS + _COMPOSITE),
+    # BA: keyframes every 2nd frame, mapped every 2nd frame, so that the
+    # last mapping (frame 9) has five keyframes and bundle-adjusts; the
+    # frames before map on the union path (kernel #3).  Only the BA branch
+    # reaches the fused trunks (#4-5, with the position cotangent) on this
+    # config: the tracker runs them off, the union mapper takes the mapping
+    # loss
+    "slam_ba": (SYNTH_CFG, merged(SYNTH_CUTS, {"mapping": {
+        "BA": True, "every_frame": 2, "keyframe_every": 2}}),
+        ("topk_rows", "maploss_bwd") + _TRUNKS, _TRACKLOSS + _COMPOSITE),
 }
+# the band: 30-frame runs of two configs on two paths at three seeds
+BAND_CONFIGS = {"synth_tpu": SYNTH_CFG,
+                "synth_noisy": "configs/Synthetic/synth_noisy.yaml"}
+BAND_PATHS = {"slam": NO_VIS, "slam_fused": merged(NO_VIS, FUSED)}
+BAND_SEEDS = (0, 1, 2)
+# the reference's 30-frame ATE (cm) on the TPU at its seeds (history, the
+# band the port is held to; ABLATIONS.md round 5, QUALITY.md)
+BAND_REFERENCE_CM = {"synth_tpu": {"seeds": [0, 1, 2],
+                                   "ate_cm": [1.29, 1.42, 1.59]},
+                     "synth_noisy": {"seeds": [1219, 7, 3],
+                                     "ate_cm": [1.92, 2.59, 2.19]}}
 
 
 @contextlib.contextmanager
@@ -1532,29 +1621,126 @@ def world1_group(name: str):
         dist.destroy_process_group()
 
 
+def write_tum_tree(folder: str) -> dict:
+    """slam_tum's input: TUM_FRAMES frames of the synthetic room rendered
+    at freiburg1_desk.yaml's 480x640 intrinsics, written as a TUM RGB-D
+    tree by the port's PNG writer (libpng's adaptive row filters, as real
+    TUM files have them).  Returns the rendered frames' first
+    colour and depth for the decode check."""
+    from hpslam_tpu_torch import config as C
+    from hpslam_tpu_torch.utils import datasets as D
+    cam = dict(C.load_config(os.path.join(HERE, TUM_CFG), os.path.join(
+        HERE, "configs", "point_slam.yaml"))["cam"], crop_edge=0)
+    cam.pop("distortion")
+    syn = D.Synthetic({"dataset": "synthetic", "seed": 1219, "data": {},
+                       "synthetic": {"n_frames": TUM_FRAMES, "radius": 1.2},
+                       "cam": cam})
+    frames = [syn[i] for i in range(TUM_FRAMES)]
+    D.write_tum_rgbd(folder, frames, png_depth_scale=cam["png_depth_scale"])
+    return {"color": frames[0].color, "depth": frames[0].depth}
+
+
+def png_row_filters(path: str) -> list:
+    """The number of rows of each PNG filter type (0-4) in a
+    non-interlaced PNG file."""
+    import struct
+    import zlib
+
+    import numpy as np
+    with open(path, "rb") as fh:
+        buf = fh.read()
+    off, idat, H = 8, [], 0
+    while off + 8 <= len(buf):
+        n, kind = struct.unpack_from(">I4s", buf, off)
+        if kind == b"IHDR":
+            H = struct.unpack_from(">I", buf, off + 12)[0]
+        elif kind == b"IDAT":
+            idat.append(buf[off + 8:off + 8 + n])
+        off += 12 + n
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    return np.bincount(raw.reshape(H, -1)[:, 0], minlength=5).tolist()
+
+
+def check_tum_decode(cfg_path: str, tree: str, first: dict) -> dict:
+    """The run's reader (the port's TUM reader on the run's config) gives
+    back the rendered first frame up to the PNG quantisation, cut by the
+    config's crop edge; with zero distortion the undistortion is the
+    identity, bit for bit.  The colour files must hold Average or Paeth
+    rows (the decoder's anti-diagonal pass).  Times the reader per frame
+    (decode, undistort, crop; mean over the tree), each of frame 0's two
+    decodes, and the decode of its depth rewritten with Paeth rows alone
+    (what a depth file of libpng's choice can cost)."""
+    import numpy as np
+    from hpslam_tpu_torch import config as C
+    from hpslam_tpu_torch.utils import datasets as D
+    from hpslam_tpu_torch.utils import image_io as IO
+    cfg = C.load_config(cfg_path, os.path.join(HERE, "configs",
+                                               "point_slam.yaml"))
+    reader = D.get_dataset(cfg, input_folder=tree)
+    fr = reader[0]
+    e = cfg["cam"]["crop_edge"]
+    col = first["color"][e:-e, e:-e]
+    dep = first["depth"][e:-e, e:-e]
+    raw = IO.read_color(reader.color_paths[0])
+    out = {"frames": len(reader), "shape": list(fr.color.shape),
+           "color_max_err": float(np.abs(fr.color - col).max()),
+           "depth_max_err_m": float(np.abs(fr.depth - dep).max()),
+           "undistort_identity": bool(np.array_equal(
+               IO.undistort(raw, reader.K, reader.distortion), raw))}
+    t0 = time.perf_counter()
+    for i in range(len(reader)):
+        reader[i]
+    out["read_ms_per_frame"] = 1e3 * (time.perf_counter() - t0) / len(reader)
+    paeth = os.path.join(tree, "depth_paeth.png")
+    IO.write_png(paeth, IO.read_png(reader.depth_paths[0]), "paeth")
+    for key, path in (("rgb", reader.color_paths[0]),
+                      ("depth", reader.depth_paths[0]),
+                      ("depth_all_paeth", paeth)):
+        t0 = time.perf_counter()
+        IO.read_png(path)
+        out[f"png_decode_ms_{key}"] = 1e3 * (time.perf_counter() - t0)
+        out[f"png_row_filters_{key}"] = png_row_filters(path)
+    os.remove(paeth)
+    scale = cfg["cam"]["png_depth_scale"]
+    if not (len(reader) == TUM_FRAMES and out["undistort_identity"]
+            and out["color_max_err"] <= 0.5 / 255 + 1e-6
+            and out["depth_max_err_m"] <= 0.5 / scale + 1e-6
+            and sum(out["png_row_filters_rgb"][3:]) > 0):
+        raise AssertionError(f"TUM tree decode: {out}")
+    return out
+
+
 def run_slam(out_dir: str, name: str = "slam", profile: bool = False,
-             tag: str = ""):
-    """The 10-frame SLAM run through the port's CLI entry point, with the
-    config additions of SLAM_RUNS[name]; with ``profile`` the same run is
-    repeated under torch.profiler (the first run is its warm-up) and its
-    summary returned under "profile".  Returns (summary, estimated
-    trajectory from the run's last checkpoint)."""
+             tag: str = "", spec=None, seed=None, max_ate=ATE_MAX_M):
+    """One SLAM run through the port's CLI entry point on ``spec`` (by
+    default SLAM_RUNS[name]: config, additions, kernels launched and not),
+    at ``seed`` where given; for slam_tum on a TUM tree written first.
+    Fails on the kernels or an ATE of max_ate or more (None: no limit).
+    With ``profile`` the same run is repeated under torch.profiler (the
+    first run is its warm-up) and its summary returned under "profile".
+    Returns (summary, estimated trajectory from the run's last
+    checkpoint)."""
     import torch
+    import yaml
     from hpslam_tpu_torch import _cuda
     from hpslam_tpu_torch import run as R
     from hpslam_tpu_torch.utils.logger import (latest_checkpoint,
                                                load_checkpoint)
+    base, additions, launched, not_launched = spec or SLAM_RUNS[name]
     work = tempfile.mkdtemp(prefix="hpslam_smoke_")
     try:
         cfg_path = os.path.join(work, "smoke.yaml")
-        base = os.path.join(HERE, "configs", "Synthetic", "synth_tpu.yaml")
+        cfg = merged(additions, {"inherit_from": os.path.join(HERE, base),
+                                 "verbose": False},
+                     {} if seed is None else {"seed": seed})
         with open(cfg_path, "w") as f:
-            f.write(f"inherit_from: {base}\n"
-                    "synthetic:\n  n_frames: 10\n"
-                    "tracking:\n  vis_freq: 1000\n"
-                    "mapping:\n  vis_freq: 1000\n"
-                    "verbose: False\n" + SLAM_RUNS[name][0])
+            yaml.safe_dump(cfg, f)
         argv = [cfg_path, "--input_folder", os.path.join(work, "in")]
+        decode = None
+        if name == "slam_tum":
+            first = write_tum_tree(os.path.join(work, "in"))
+            decode = check_tum_decode(cfg_path, os.path.join(work, "in"),
+                                      first)
         with world1_group(name):
             _cuda.reset_launches()
             torch.cuda.synchronize()
@@ -1573,13 +1759,15 @@ def run_slam(out_dir: str, name: str = "slam", profile: bool = False,
     out = {"ate_rmse_m": ate, "track_ms_mean": summary["track_ms_mean"],
            "map_ms_mean": summary["map_ms_mean"],
            "n_frames": summary["n_frames"], "launches": launches}
+    if name == "slam_tum":
+        out["decode"] = decode
+        out["cuts"] = TUM_CUTS
     if prof is not None:
         out["profile"] = prof
     with open(os.path.join(out_dir, f"{name}{tag}_summary.json"), "w") as f:
         json.dump(out, f, indent=1)
-    if not ate < ATE_MAX_M:
-        raise AssertionError(f"ATE RMSE {ate} m above {ATE_MAX_M} m")
-    _cfg, launched, not_launched = SLAM_RUNS[name]
+    if max_ate is not None and not ate < max_ate:
+        raise AssertionError(f"ATE RMSE {ate} m above {max_ate} m")
     for k in launched:
         if launches.get(k, 0) <= 0:
             raise AssertionError(f"kernel {k} was not launched on the "
@@ -1589,6 +1777,29 @@ def run_slam(out_dir: str, name: str = "slam", profile: bool = False,
             raise AssertionError(f"kernel {k} was launched on the {name} "
                                  "path")
     return out, traj
+
+
+def run_band(out_dir: str) -> dict:
+    """synth_tpu.yaml and synth_noisy.yaml for all their 30 frames at the
+    seeds BAND_SEEDS, on the default (slam) and the slam_fused path: each
+    run's ATE, beside the reference's band.  Reports; holds no limit."""
+    out = {"reference_cm": BAND_REFERENCE_CM, "runs": []}
+    for cfg_name, base in BAND_CONFIGS.items():
+        for path, additions in BAND_PATHS.items():
+            for seed in BAND_SEEDS:
+                t0 = time.perf_counter()
+                s, _traj = run_slam(
+                    out_dir, "band", tag=f"_{cfg_name}_{path}_{seed}",
+                    spec=(base, additions, (), ()), seed=seed,
+                    max_ate=None)
+                row = {"config": cfg_name, "path": path, "seed": seed,
+                       "ate_cm": 100 * s["ate_rmse_m"],
+                       "track_ms_mean": s["track_ms_mean"],
+                       "map_ms_mean": s["map_ms_mean"],
+                       "seconds": time.perf_counter() - t0}
+                out["runs"].append(row)
+                emit({"band_run": row})
+    return out
 
 
 def run_repeat(out_dir: str, first: dict) -> dict:
@@ -1696,7 +1907,7 @@ def main(argv=None) -> int:
     # each kernel's launches come from the first run that launches it
     launches = {}
     first_runs = {}
-    for name in ("slam", "slam_fused", "slam_mesh"):
+    for name in SLAM_PHASES:
         if name in phases:
             with phase(name, seconds):
                 s, traj = run_slam(out_dir, name, args.profile)
@@ -1708,6 +1919,9 @@ def main(argv=None) -> int:
     if "repeat" in phases:
         with phase("repeat", seconds):
             emit({"repeat": run_repeat(out_dir, first_runs)})
+    if "band" in phases:
+        with phase("band", seconds):
+            emit({"band": run_band(out_dir)})
     if "kernels" in phases:
         with phase("kernels", seconds):
             rows = []

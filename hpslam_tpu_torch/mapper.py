@@ -1,31 +1,41 @@
-"""Mapper (port of hpslam_tpu/mapper.py), union path.
+"""Mapper (port of hpslam_tpu/mapper.py).
 
 Per mapped frame: point insertion, then for each level (mid, fine) one
-union neighbour cache over the keyframe window (``build_pixel_union_cache``:
-one kNN search, interpolation weights, per-ray top-u union), a compaction
-of the scene to the rows the cache can touch, and ``map_scan``: the
-level's geometry-then-colour iterations.  With ``model.fused_composite``
-(the default) each iteration is one call of the mapping-loss kernel
-(``ops.fused_mlp.nicer_fused_maploss``, kernel #3 under autograd) plus the
-feature-row gather, its deterministic scatter-add backward and Adam;
-without it, the union render (``render_union``: union-slot feature mix,
-the fused trunks of kernels #4-5 or the plain trunks, the compositor) and
-the masked L1 losses run as tensor ops around the trunk kernels.
+neighbour cache over the keyframe window, a compaction of the scene to the
+rows the cache can touch, and the level's geometry-then-colour iterations.
+Two paths, chosen as the reference chooses them (``use_union``):
 
-Under a device mesh (``parallel.mesh``, dp ranks) the union cache's query
+* The union path (fixed poses, no rel-pos encoding):
+  ``build_pixel_union_cache`` (one kNN search, interpolation weights,
+  per-ray top-u union) and ``map_scan``.  With ``model.fused_composite``
+  (the default) each iteration is one call of the mapping-loss kernel
+  (``ops.fused_mlp.nicer_fused_maploss``, kernel #3 under autograd) plus
+  the feature-row gather, its deterministic scatter-add backward and Adam;
+  without it, the union render (``render_union``: union-slot feature mix,
+  the fused trunks of kernels #4-5 or the plain trunks, the compositor)
+  and the masked L1 losses run as tensor ops around the trunk kernels.
+* The per-sample path (bundle adjustment, or a rel-pos encoding, whose
+  weights or neighbour features change with the poses or per pair):
+  ``build_pixel_knn_cache`` (P pixels x S samples per window frame, one
+  kNN search), then ``optimise`` over ``samples_stage_loss`` with
+  ``samples_lr_tree``'s LR groups: each iteration renders its rays
+  through ``renderer.render_rays`` over the cached neighbours, in tracker
+  mode under BA so that the window's camera tensors (all but the oldest
+  keyframe) get gradients; the fused trunks (kernels #4-5, with the
+  position cotangent) serve it where ``fused_usable``.  Trainable geometry
+  decoders are ported on this path only.
+
+Under a device mesh (``parallel.mesh``, dp ranks) each cache's query
 search is dp-sharded and the cache is then gathered whole on every rank;
-each ``map_scan`` iteration renders this rank's dp slice of the rays
-through ``render_union`` (the mapping-loss kernel is single-device, as in
-the reference), where ``model.fused_composite`` takes the fused composite
-(kernel #6 forward, kernel #5 in its backward), and the gradients and the
-two loss terms are summed over dp before Adam.
-
-Not ported (raise NotImplementedError): bundle adjustment (mapping.BA with
-more than four keyframes) and the per-sample (non-union) mapping path that
-rel-pos encodings need.
+each iteration renders this rank's dp slice of the rays (through
+``render_union`` on the union path: the mapping-loss kernel is
+single-device, as in the reference; there ``model.fused_composite`` takes
+the fused composite, kernel #6 forward, kernel #5 in its backward), and the
+gradients and the two loss terms are summed over dp before Adam.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -41,7 +51,7 @@ from .ops import knn as Knn
 from .ops import optim as Opt
 from .ops import sampling as Samp
 from .parallel.mesh import all_gather_rows, all_reduce_grads, shard_batch
-from .renderer import RenderConfig
+from .renderer import RenderConfig, render_rays
 
 
 @torch.no_grad()
@@ -88,6 +98,64 @@ def keyframe_selection_overlap(rng: np.random.Generator, depth, c2w,
 
 
 @torch.no_grad()
+def draw_cache_pixels(gen: torch.Generator, pools, pool_lens, P: int):
+    """P pixel ids per window frame, uniform over each frame's valid-pixel
+    pool (pools (F, H*W), the first pool_lens[f] entries valid): (F, P)."""
+    r = torch.randint(0, 2 ** 31 - 1, (pools.shape[0], P), generator=gen,
+                      device=pools.device) % pool_lens[:, None]
+    return torch.gather(pools, 1, r)
+
+
+@torch.no_grad()
+def pixel_samples(idx, depths, c2ws, S: int, W: int, fx, fy, cx, cy,
+                  near_surface: float, far_surface: float,
+                  fix_interval: bool = False):
+    """The S depth-guided samples of each cached pixel (idx (F, P) flat
+    pixel ids of the window frames): (jj, ii (F, P) rows / columns, d (F, P)
+    depth, rays_d (F, P, 3), z (F, P, S), pts (F, P, S, 3)); zero depths
+    sample around 1 m."""
+    F = idx.shape[0]
+    jj = torch.div(idx, W, rounding_mode="floor")
+    ii = idx % W
+    d = depths[torch.arange(F, device=idx.device)[:, None], jj, ii]
+    dirs = G.camera_dirs(ii.float(), jj.float(), fx, fy, cx, cy)   # (F,P,3)
+    rays_d = torch.einsum("fpd,fkd->fpk", dirs, c2ws[:, :3, :3])
+    rays_o = c2ws[:, :3, 3]
+    safe = torch.where(d > 0, d, torch.ones_like(d))
+    z = Samp.surface_z_vals(safe, S, near_surface, far_surface,
+                            fix_interval)                        # (F,P,S)
+    pts = rays_o[:, None, None, :] + rays_d[:, :, None, :] * z[..., None]
+    return jj, ii, d, rays_d, z, pts
+
+
+@torch.no_grad()
+def build_pixel_knn_cache(gen: torch.Generator, depths, c2ws, pools,
+                          pool_lens, tile_index, P: int, S: int, k: int,
+                          W: int, fx, fy, cx, cy, near_surface: float,
+                          far_surface: float, mesh=None, idx=None):
+    """Per-sample neighbour cache of the window: P pixels drawn per frame
+    (or the given pixel ids idx (F, P)), S depth-guided samples each, one
+    kNN search against the level's cloud.  Under a mesh each rank searches
+    its dp slice of the pixels and the rows are gathered whole on every
+    rank.  Returns (cache_pix (F, P) flat pixel ids, D (F, P, S, k),
+    I (F, P, S, k))."""
+    if idx is None:
+        idx = draw_cache_pixels(gen, pools, pool_lens, P)
+    F, P = idx.shape
+    pts = pixel_samples(idx, depths, c2ws, S, W, fx, fy, cx, cy,
+                        near_surface, far_surface)[-1]
+    q = shard_batch(mesh, pts.reshape(F * P, S, 3)).reshape(-1, 3)
+    D, I = Knn.knn_tiles(q, *tile_index, k=k)
+    if mesh is not None:
+        # [D | ids as exact f32 values] per pixel, in one gather
+        rows = all_gather_rows(mesh, torch.cat([
+            D.reshape(-1, S * k), Knn.pack_ids(I.reshape(-1, S * k))], 1),
+            F * P)
+        D, I = rows[:, :S * k], Knn.unpack_ids(rows[:, S * k:])
+    return idx, D.reshape(F, P, S, k), I.reshape(F, P, S, k)
+
+
+@torch.no_grad()
 def build_pixel_union_cache(gen: torch.Generator, depths, c2ws, pools,
                             pool_lens, rq_stack, tile_index, capacity: int,
                             P: int, S: int, k: int, u_max: int, H: int,
@@ -109,23 +177,14 @@ def build_pixel_union_cache(gen: torch.Generator, depths, c2ws, pools,
     pmask (F, P, S), const dict)."""
     F = depths.shape[0]
     dev = depths.device
-    r = torch.randint(0, 2 ** 31 - 1, (F, P), generator=gen,
-                      device=dev) % pool_lens[:, None]
-    idx = torch.gather(pools, 1, r)                               # (F, P)
-    jj = torch.div(idx, W, rounding_mode="floor")
-    ii = idx % W
+    idx = draw_cache_pixels(gen, pools, pool_lens, P)
+    jj, ii, d, rays_d, z, pts = pixel_samples(
+        idx, depths, c2ws, S, W, fx, fy, cx, cy, near_surface, far_surface,
+        fix_interval)
     fidx = torch.arange(F, device=dev)[:, None]
-    d = depths[fidx, jj, ii]
     rq = rq_stack[fidx, jj, ii]
     c_gt = (colors[fidx, jj, ii] if colors is not None
             else torch.zeros((F, P, 3), device=dev))
-    dirs = G.camera_dirs(ii.float(), jj.float(), fx, fy, cx, cy)   # (F,P,3)
-    rays_d = torch.einsum("fpd,fkd->fpk", dirs, c2ws[:, :3, :3])
-    rays_o = c2ws[:, :3, 3]
-    safe = torch.where(d > 0, d, torch.ones_like(d))
-    z = Samp.surface_z_vals(safe, S, near_surface, far_surface,
-                            fix_interval)                        # (F,P,S)
-    pts = rays_o[:, None, None, :] + rays_d[:, :, None, :] * z[..., None]
     FP = F * P
     const = {"z": z.reshape(FP, S), "pts": pts.reshape(FP, S, 3),
              "rays_d": rays_d.reshape(FP, 3), "d_gt": d.reshape(FP),
@@ -213,6 +272,21 @@ def unique_bucket(n: int, cap: int) -> int:
     return min(u, cap)
 
 
+def pool_inside_thresh(cache_pix, depths, F_actual: int):
+    """The 'inside' depth threshold of a level phase, once from the cached
+    pixel pool of the F_actual window frames (as the reference): min(10 x
+    lower median, 1.2 x max)."""
+    F_max, _, W = depths.shape
+    pj = torch.div(cache_pix, W, rounding_mode="floor")
+    d_pool = depths[torch.arange(F_max, device=depths.device)[:, None], pj,
+                    cache_pix % W]
+    validf = torch.arange(F_max, device=depths.device)[:, None] < F_actual
+    sd = torch.sort(torch.where(validf, d_pool, float("inf")).reshape(-1))[0]
+    n_val = F_actual * cache_pix.shape[1]
+    return torch.minimum(10.0 * sd[max((n_val - 1) // 2, 0)],
+                         1.2 * sd[max(n_val - 1, 0)])
+
+
 def map_scan(params, mcfg: Dec.ModelConfig, rcfg: RenderConfig, opt_params,
              opt_state, gen: torch.Generator, depths, cache_pix,
              cache_packed, u_sz: int, expo_stack, lr_table, F_actual: int,
@@ -229,50 +303,29 @@ def map_scan(params, mcfg: Dec.ModelConfig, rcfg: RenderConfig, opt_params,
     dev = cache_packed.device
     use_fused_loss = (mcfg.fused_composite and Dec.fused_usable(mcfg)
                       and mesh is None)
-    n_iters = lr_table.shape[0]
-    F_max = depths.shape[0]
     P = cache_pix.shape[1]
     S = rcfg.N_surface
     C = mcfg.c_dim
     o = FM.row_offsets(S, u_sz)
-    # 'inside' threshold once per phase from the cached pixel pool
-    pj = torch.div(cache_pix, depths.shape[2], rounding_mode="floor")
-    pi = cache_pix % depths.shape[2]
-    d_pool = depths[torch.arange(F_max, device=dev)[:, None], pj, pi]
-    validf = torch.arange(F_max, device=dev)[:, None] < F_actual
-    sd = torch.sort(torch.where(validf, d_pool, float("inf")).reshape(-1))[0]
-    n_val = F_actual * P
-    inside_thresh = torch.minimum(10.0 * sd[max((n_val - 1) // 2, 0)],
-                                  1.2 * sd[max(n_val - 1, 0)])
-    fid = torch.arange(n_rays, device=dev) % F_actual
+    inside_thresh = pool_inside_thresh(cache_pix, depths, F_actual)
     geo_flat = [w.contiguous() for w in FM.flatten_core(
         params[f"geo_{level}"]["core"])]
     Bs = (params[f"geo_{level}"]["B"].contiguous(),
           params[f"col_{level}"]["B"].contiguous())
 
-    def lr_tree_for(lrs):
+    def lr_tree_for(op, lrs):
         tree = {"feat": torch.cat([torch.full((C,), float(lrs[1]),
                                               device=dev),
                                    torch.full((C,), float(lrs[2]),
                                               device=dev)])}
-        if "dec" in opt_params:
+        if "dec" in op:
             tree["dec"] = float(lrs[0])
-        if "expo_feat" in opt_params:
+        if "expo_feat" in op:
             tree["expo_feat"] = 0.001
         return tree
 
     def col_dec_of(op):
         return op["dec"] if "dec" in op else params[f"col_{level}"]
-
-    def exposure_sel(op, dec, fid):
-        ef = expo_stack.clone()
-        if "expo_feat" in op:
-            ef = torch.cat([ef[:F_actual - 1], op["expo_feat"][None],
-                            ef[F_actual:]])
-        rots, transs = Dec.exposure_affine(dec, ef)
-        oh = (fid[:, None] == torch.arange(F_max, device=dev)[None, :]
-              ).float()
-        return oh @ torch.cat([rots.reshape(F_max, 9), transs], dim=1)
 
     def render_union(col_dec, with_color, row, feat, uids):
         """Union-cache render without the loss kernel: the union-slot
@@ -334,7 +387,8 @@ def map_scan(params, mcfg: Dec.ModelConfig, rcfg: RenderConfig, opt_params,
         if not with_color:
             return gl, gl, torch.zeros((), device=dev)
         if use_exposure:
-            sel = exposure_sel(op, dec, fid)
+            sel = exposure_rows(dec, expo_stack, op.get("expo_feat"),
+                                F_actual, fid)
             color = torch.sigmoid(torch.einsum(
                 "nc,ncd->nd", color, sel[:, :9].reshape(-1, 3, 3))
                 + sel[:, 9:])
@@ -359,7 +413,8 @@ def map_scan(params, mcfg: Dec.ModelConfig, rcfg: RenderConfig, opt_params,
         uf = IT.gather_rows(feat_v, uids).reshape(n, -1)
         okf = ((d_gt > 0) & inside).float()[:, None]
         use_aff = bool(use_exposure) and with_color
-        aff = (exposure_sel(op, dec, fid) if use_aff
+        aff = (exposure_rows(dec, expo_stack, op.get("expo_feat"), F_actual,
+                             fid) if use_aff
                else torch.zeros((n, 12), device=dev))
         col_flat = [w if w.is_contiguous() else w.contiguous()
                     for w in FM.flatten_core(dec["core"])]
@@ -372,9 +427,40 @@ def map_scan(params, mcfg: Dec.ModelConfig, rcfg: RenderConfig, opt_params,
             return gl + w_color * cl, gl, cl
         return gl, gl, torch.zeros((), device=dev)
 
+    return optimise(stage_loss, lr_tree_for, opt_params, opt_state, gen,
+                    lr_table, geo_iters, n_rays, P, F_actual, mesh)
+
+
+def exposure_rows(col_dec, expo_stack, expo_feat, F_actual: int, fid):
+    """Per-ray exposure affine rows (n, 12) [rot 9 | trans 3] of each ray's
+    window frame, by a one-hot matmul (as the reference: its transpose is
+    the backward, not a row scatter); the current frame's latent (slot
+    F_actual - 1) is ``expo_feat`` where given."""
+    F_max = expo_stack.shape[0]
+    ef = expo_stack.clone()
+    if expo_feat is not None:
+        ef = torch.cat([ef[:F_actual - 1], expo_feat[None], ef[F_actual:]])
+    rots, transs = Dec.exposure_affine(col_dec, ef)
+    oh = (fid[:, None] == torch.arange(F_max, device=fid.device)[None, :]
+          ).float()
+    return oh @ torch.cat([rots.reshape(F_max, 9), transs], dim=1)
+
+
+def optimise(stage_loss, lr_tree_for, opt_params, opt_state,
+             gen: torch.Generator, lr_table, geo_iters: int, n_rays: int,
+             P: int, F_actual: int, mesh=None):
+    """The iterations of one level phase, either path: each draws n_rays
+    cache slots (ray r on window frame r % F_actual), takes
+    ``stage_loss(op, fid, slot, with_color)`` on this rank's dp slice of
+    them (geometry for the first geo_iters iterations, then colour), sums
+    the gradients and the loss terms over dp under a mesh, and takes one
+    Adam step at ``lr_tree_for(op, lr_table[it])``.
+    Returns (opt_params, opt_state, losses (n_iters, 2) [geo, color])."""
+    dev = Opt.tree_leaves(opt_params)[0].device
+    fid = torch.arange(n_rays, device=dev) % F_actual
     losses = []
     op, ost = opt_params, opt_state
-    for it in range(n_iters):
+    for it in range(lr_table.shape[0]):
         with_color = it >= geo_iters
         slot = torch.randint(0, P, (n_rays,), generator=gen, device=dev)
         opg = Opt.tree_map(lambda t: t.detach().requires_grad_(), op)
@@ -387,11 +473,96 @@ def map_scan(params, mcfg: Dec.ModelConfig, rcfg: RenderConfig, opt_params,
                                              gl.detach(), cl.detach())
         gtree = Opt.tree_unflatten(opg, grads)
         op, ost = Opt.update(gtree, ost, Opt.tree_map(torch.detach, opg),
-                             lr_tree_for(lr_table[it]))
+                             lr_tree_for(opg, lr_table[it]))
         losses.append(torch.stack([gl.detach(), cl.detach()]))
     loss_t = (torch.stack(losses) if losses
               else torch.zeros((0, 2), device=dev))
     return op, ost, loss_t
+
+
+def window_poses(c2ws, cams=None, cam_trainable=None):
+    """(F_max, 3, 4) camera matrices of the window: the fixed poses, or
+    under BA the camera tensors (F_max, 7), whose frozen slots (the oldest
+    keyframe and the padding) pass no gradient."""
+    if cams is None:
+        return c2ws[:, :3, :]
+    cams = torch.where(cam_trainable[:, None], cams, cams.detach())
+    return G.get_camera_from_tensor(cams)
+
+
+def samples_stage_loss(params, mcfg: Dec.ModelConfig, rcfg: RenderConfig,
+                       colors, depths, c2ws, rq_map, cache_pix, cacheD,
+                       cacheI, expo_stack, pos, F_actual: int, level: str,
+                       fx, fy, cx, cy, use_exposure: bool, opt_geo_dec: bool,
+                       w_color: float, use_ba: bool = False,
+                       cam_trainable=None):
+    """The per-sample path's stage loss of one level phase, as a function
+    ``loss(op, fid, slot, with_color) -> (total, geo, color)`` of the
+    optimised tree op ({'geo', 'col'} compact feature tables, optional
+    'dec' {decoder name: tree}, optional 'expo_feat', 'cams' under BA) and
+    of the rays' window frames and cache slots.
+
+    Each ray is cached pixel ``cache_pix[fid, slot]`` of its frame, cast
+    from the window pose (the camera tensor under BA); its S samples take
+    their neighbours from the cache (cacheD / cacheI, compacted to pos and
+    the feature tables) and render through ``render_rays`` in tracker mode
+    under BA (the weights follow the poses).  Masked L1 depth loss and, on
+    colour stages, the per-frame exposure affine and the masked L1 colour
+    loss, as on the union path."""
+    W = depths.shape[2]
+    k = cacheD.shape[-1]
+    inside_thresh = pool_inside_thresh(cache_pix, depths, F_actual)
+
+    def loss(op, fid, slot, with_color):
+        stage = f"{'color' if with_color else 'geometry'}_{level}"
+        pr = params
+        if "dec" in op and (with_color or opt_geo_dec):
+            pr = dict(params, **op["dec"])
+        idx = cache_pix[fid, slot]
+        jj = torch.div(idx, W, rounding_mode="floor")
+        ii = idx % W
+        poses = window_poses(c2ws, op.get("cams"), cam_trainable)
+        dirs = G.camera_dirs(ii.float(), jj.float(), fx, fy, cx, cy)
+        rays_d = torch.einsum("nd,nkd->nk", dirs, poses[fid, :3, :3])
+        rays_o = poses[fid, :3, 3]
+        d_gt = depths[fid, jj, ii]
+        kc = (cacheD[fid, slot].reshape(-1, k),
+              cacheI[fid, slot].reshape(-1, k))
+        depth, _unc, color, vmask = render_rays(
+            pr, mcfg, rcfg, stage, rays_o, rays_d, d_gt, pos, pos.shape[0],
+            op["geo"], op["col"], rq_map[fid, jj, ii], is_tracker=use_ba,
+            knn_cache=kc)
+        mask = ((d_gt > 0) & vmask & torch.isfinite(depth)
+                & (d_gt <= inside_thresh))
+        gl = torch.sum(torch.where(mask, torch.abs(d_gt - depth), 0.0))
+        if not with_color:
+            return gl, gl, torch.zeros((), device=gl.device)
+        if use_exposure:
+            sel = exposure_rows(pr[f"col_{level}"], expo_stack,
+                                op.get("expo_feat"), F_actual, fid)
+            color = torch.sigmoid(torch.einsum(
+                "nc,ncd->nd", color, sel[:, :9].reshape(-1, 3, 3))
+                + sel[:, 9:])
+        c_gt = colors[fid, jj, ii]
+        cl = torch.sum(torch.where(mask[:, None], torch.abs(c_gt - color),
+                                   0.0))
+        return gl + w_color * cl, gl, cl
+
+    return loss
+
+
+def samples_lr_tree(op, lrs):
+    """The per-sample path's LR tree for ``optimise``: the reference's
+    groups (lrs: one lr_table row [decoders, geo, col, BA camera]; the
+    exposure latent at 0.001)."""
+    tree = {"geo": float(lrs[1]), "col": float(lrs[2])}
+    if "dec" in op:
+        tree["dec"] = float(lrs[0])
+    if "expo_feat" in op:
+        tree["expo_feat"] = 0.001
+    if "cams" in op:
+        tree["cams"] = float(lrs[3])
+    return tree
 
 
 def build_schedule(n_joint: int, mid_ratio: float, geo_ratio: float,
@@ -605,14 +776,9 @@ class Mapper:
                 for f in window]
         frame_pts_add = 0 if color_refine else self.add_points_for_frame(
             idx, frame, c2w, npc, r_add)
-        if (not color_refine and len(self.keyframe_list) > 4
-                and self.cfg["mapping"]["BA"]):
-            raise NotImplementedError("mapping.BA (bundle adjustment) is not "
-                                      "ported yet; see ROADMAP.md")
-        if slam.mcfg.encode_rel_pos_in_col or slam.mcfg.encode_rel_pos_in_geo:
-            raise NotImplementedError("the per-sample mapping path that "
-                                      "rel-pos encodings need is not ported "
-                                      "yet; see ROADMAP.md")
+        # BA starts once enough keyframes exist (as the reference)
+        use_ba = (not color_refine and len(self.keyframe_list) > 4
+                  and self.cfg["mapping"]["BA"])
         n_joint = self.iters_first if init else self.iters
         if color_refine:
             n_joint = self.iters * 2
@@ -624,7 +790,9 @@ class Mapper:
         schedules = build_schedule(
             n_joint, self.mid_iter_ratio,
             0.0 if color_refine else self.geo_iter_ratio, init,
-            self.geo_iter_first, self.lr_cfg, color_refine=color_refine)
+            self.geo_iter_first, self.lr_cfg,
+            ba_cam_lr=self.cfg["mapping"]["BA_cam_lr"] if use_ba else 0.0,
+            color_refine=color_refine)
 
         F_actual = len(window)
         F_max = max(self._effective_window + 2, F_actual)
@@ -671,10 +839,33 @@ class Mapper:
         expo_t = torch.as_tensor(expo, device=dev)
 
         opt_color_dec = not self.fix_color_decoder
-        if not (self.fix_geo_mid and self.fix_geo_fine):
+        opt_geo_dec = not (self.fix_geo_mid and self.fix_geo_fine)
+        # the union path holds for fixed poses and per-pixel-constant
+        # weights: no BA, no rel-pos encoding (as the reference)
+        use_union = not (use_ba or slam.mcfg.encode_rel_pos_in_col
+                         or slam.mcfg.encode_rel_pos_in_geo)
+        if use_union and opt_geo_dec:
             raise NotImplementedError(
-                "optimising the geometry decoders needs the per-sample "
-                "mapping path, which is not ported yet; see ROADMAP.md")
+                "optimising the geometry decoders on the union mapping path "
+                "is not ported (the fused mapping paths freeze the geometry "
+                "core); see ROADMAP.md")
+        # the fused trunks freeze the geometry core: off when it trains
+        mcfg_run = (dataclasses.replace(slam.mcfg, fused_mlp=False)
+                    if opt_geo_dec else slam.mcfg)
+        # BA camera tensors: the window poses as 7-vectors; the oldest
+        # keyframe and the padding slots stay frozen
+        cam_t = cam_trainable = None
+        if use_ba:
+            kf_ids = [self.keyframe_list[f] if f != -1 else idx
+                      for f in window]
+            oldest = int(np.argmin(kf_ids))
+            cams = np.zeros((F_max, 7), np.float32)
+            for slot in range(F_actual):
+                cams[slot] = G.get_tensor_from_camera_np(c2ws[slot])
+            cam_t = torch.as_tensor(cams, device=dev)
+            cam_trainable = torch.as_tensor(
+                (np.arange(F_max) < F_actual) & (np.arange(F_max) != oldest),
+                device=dev)
         n_rays = self.mapping_pixels
         new_params = dict(params)
         new_expo = exposure_feat
@@ -684,65 +875,114 @@ class Mapper:
             "pixels_knn_cache", max(2000, 4 * (n_rays // max(1, F_actual)))))
         u_max = int(self.cfg["mapping"].get("union_size", 8))
         knn_probe = int(self.cfg["mapping"].get("knn_probe", 12))
+        C = slam.mcfg.c_dim
         for level in ("mid", "fine"):
             stage_ids, lr_table = schedules[level]
             if stage_ids.size == 0:
                 continue
-            lv = npc.levels[level]
-            cache_pix, cacheI, cacheWm, cachePm, const = \
-                build_pixel_union_cache(
-                    self.gen, depths, c2ws_t, pools, pool_lens_t,
-                    rqm if level == "mid" else rqf, npc.index(level),
-                    lv.capacity, P=P, S=self.rcfg.N_surface,
-                    k=self.rcfg.nn_num, u_max=u_max, H=H, W=W, fx=slam.fx,
-                    fy=slam.fy, cx=slam.cx, cy=slam.cy,
-                    near_surface=self.rcfg.near_end_surface,
-                    far_surface=self.rcfg.far_end_surface,
-                    min_nn=slam.mcfg.min_nn_num,
-                    weighting=slam.mcfg.weighting, colors=colors,
-                    fix_interval=self.rcfg.fix_interval,
-                    knn_probe=knn_probe, mesh=slam.mesh)
             n_geo = int(np.sum(stage_ids == 0))
             if not ((stage_ids[:n_geo] == 0).all()
                     and (stage_ids[n_geo:] == 1).all()):
-                raise ValueError("map_scan needs a contiguous geometry "
-                                 "prefix")
+                raise ValueError("the mapping phases need a contiguous "
+                                 "geometry prefix")
+            lv = npc.levels[level]
+            if use_union:
+                cache_pix, cacheI, cacheWm, cachePm, const = \
+                    build_pixel_union_cache(
+                        self.gen, depths, c2ws_t, pools, pool_lens_t,
+                        rqm if level == "mid" else rqf, npc.index(level),
+                        lv.capacity, P=P, S=self.rcfg.N_surface,
+                        k=self.rcfg.nn_num, u_max=u_max, H=H, W=W,
+                        fx=slam.fx, fy=slam.fy, cx=slam.cx, cy=slam.cy,
+                        near_surface=self.rcfg.near_end_surface,
+                        far_surface=self.rcfg.far_end_surface,
+                        min_nn=slam.mcfg.min_nn_num,
+                        weighting=slam.mcfg.weighting, colors=colors,
+                        fix_interval=self.rcfg.fix_interval,
+                        knn_probe=knn_probe, mesh=slam.mesh)
+            else:
+                cache_pix, cacheD, cacheI = build_pixel_knn_cache(
+                    self.gen, depths, c2ws_t, pools, pool_lens_t,
+                    npc.index(level), P=P, S=self.rcfg.N_surface,
+                    k=self.rcfg.nn_num, W=W, fx=slam.fx, fy=slam.fy,
+                    cx=slam.cx, cy=slam.cy,
+                    near_surface=self.rcfg.near_end_surface,
+                    far_surface=self.rcfg.far_end_surface, mesh=slam.mesh)
             U = unique_bucket(count_unique(cacheI), lv.capacity)
-            uniq, cacheI_c, _pos_c, geo_c, col_c = compact_scene(
+            uniq, cacheI_c, pos_c, geo_c, col_c = compact_scene(
                 cacheI, lv.pos, lv.geo, lv.col, U)
-            packed = pack_union_cache(const, cacheWm, cachePm, cacheI_c)
-            opt_params = {"feat": torch.cat([geo_c, col_c], 1)}
-            if opt_color_dec:
-                opt_params["dec"] = Opt.tree_map(
-                    torch.clone, new_params[f"col_{level}"])
+            if use_union:
+                opt_params = {"feat": torch.cat([geo_c, col_c], 1)}
+                if opt_color_dec:
+                    opt_params["dec"] = Opt.tree_map(
+                        torch.clone, new_params[f"col_{level}"])
+            else:
+                opt_params = {"geo": geo_c, "col": col_c}
+                dec = {name: Opt.tree_map(torch.clone, new_params[name])
+                       for name, on in ((f"col_{level}", opt_color_dec),
+                                        (f"geo_{level}", opt_geo_dec)) if on}
+                if dec:
+                    opt_params["dec"] = dec
             if self.use_exposure:
                 opt_params["expo_feat"] = torch.as_tensor(
                     np.asarray(new_expo), dtype=torch.float32, device=dev)
+            if use_ba:
+                opt_params["cams"] = cam_t
             ostate = Opt.init(opt_params)
             if shared_t is not None:
                 ostate["t"] = shared_t["t"]
                 if "expo_feat" in ostate["m"] and "m_expo" in shared_t:
                     ostate["m"]["expo_feat"] = shared_t["m_expo"]
                     ostate["v"]["expo_feat"] = shared_t["v_expo"]
-            opt_params, ostate, losses = map_scan(
-                new_params, slam.mcfg, self.rcfg, opt_params, ostate,
-                self.gen, depths, cache_pix, packed, u_max, expo_t,
-                lr_table, F_actual, level, n_rays, n_geo, self.use_exposure,
-                opt_color_dec, self.w_color, mesh=slam.mesh)
-            C = slam.mcfg.c_dim
-            npc.scatter_feats(uniq, opt_params["feat"][:, :C],
-                              opt_params["feat"][:, C:], level)
-            if opt_color_dec:
-                new_params[f"col_{level}"] = opt_params["dec"]
+            if use_union:
+                packed = pack_union_cache(const, cacheWm, cachePm, cacheI_c)
+                opt_params, ostate, losses = map_scan(
+                    new_params, mcfg_run, self.rcfg, opt_params, ostate,
+                    self.gen, depths, cache_pix, packed, u_max, expo_t,
+                    lr_table, F_actual, level, n_rays, n_geo,
+                    self.use_exposure, opt_color_dec, self.w_color,
+                    mesh=slam.mesh)
+                npc.scatter_feats(uniq, opt_params["feat"][:, :C],
+                                  opt_params["feat"][:, C:], level)
+                if opt_color_dec:
+                    new_params[f"col_{level}"] = opt_params["dec"]
+            else:
+                loss_fn = samples_stage_loss(
+                    new_params, mcfg_run, self.rcfg, colors, depths, c2ws_t,
+                    rqm if level == "mid" else rqf, cache_pix, cacheD,
+                    cacheI_c, expo_t, pos_c, F_actual, level, slam.fx,
+                    slam.fy, slam.cx, slam.cy, self.use_exposure,
+                    opt_geo_dec, self.w_color, use_ba, cam_trainable)
+                opt_params, ostate, losses = optimise(
+                    loss_fn, samples_lr_tree, opt_params, ostate, self.gen,
+                    lr_table, n_geo, n_rays, P, F_actual, mesh=slam.mesh)
+                npc.scatter_feats(uniq, opt_params["geo"], opt_params["col"],
+                                  level)
+                new_params.update(opt_params.get("dec", {}))
             if self.use_exposure:
                 new_expo = opt_params["expo_feat"].cpu().numpy()
+            if use_ba:
+                cam_t = opt_params["cams"]
             shared_t = {"t": ostate["t"]}
             if "expo_feat" in ostate["m"]:
                 shared_t["m_expo"] = ostate["m"]["expo_feat"]
                 shared_t["v_expo"] = ostate["v"]["expo_feat"]
             losses_all.append(losses.cpu().numpy())
 
-        self.prev_c2w = c2w
+        updated_c2w = None
+        if use_ba:
+            # the BA-updated poses back into the keyframes and the frame
+            cams_np = cam_t.cpu().numpy()
+            for slot, f in enumerate(window):
+                if not bool(cam_trainable[slot]):
+                    continue
+                pose = np.eye(4, dtype=np.float32)
+                pose[:3, :] = G.get_camera_from_tensor_np(cams_np[slot])
+                if f == -1:
+                    updated_c2w = pose
+                else:
+                    self.keyframe_dict[f]["est_c2w"] = pose
+        self.prev_c2w = updated_c2w if updated_c2w is not None else c2w
         loss_np = (np.concatenate(losses_all, axis=0) if losses_all
                    else np.zeros((1, 2)))
         step = max(1, loss_np.shape[0] // 120)
@@ -755,7 +995,7 @@ class Mapper:
             "color_loss_curve": loss_np[::step, 1].round(3).tolist(),
             "window": window,
             "r_query": r_query,
-            "updated_c2w": None,
+            "updated_c2w": updated_c2w,
         }
         return new_params, new_expo, info
 

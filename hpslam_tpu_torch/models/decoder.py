@@ -247,7 +247,8 @@ def interpolate_level_feats(p_dec: Params, cfg: ModelConfig, p, D, I, feats,
     weights, has = IT.interp_weights(D, I, p, cloud_pos, r_query,
                                      cfg.min_nn_num, cfg.weighting, diff_pos)
     if encode_rel_pos:
-        nf = feats[I]
+        # the row gather's backward is the deterministic index_add_rows
+        nf = IT.gather_rows(feats, I)
         rel = cloud_pos[I] - p[:, None, :]
         nf = _neighbor_transform(p_dec, cfg, nf, rel)
         c = torch.sum(weights * nf, dim=1)

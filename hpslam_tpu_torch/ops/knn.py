@@ -22,7 +22,11 @@ then kernel 1 takes the top-``probe`` bins with the bin -> tile ids as
 payload.  The reference narrows with XLA's approx_min_k (16-fold on the
 TPU, exact on the CPU); a 16-fold bin minimum measured recall@8 0.9075
 against the reference's 0.945 on a 60k-point wall (tests/test_torch_knn.py
-fixture), 4-fold 0.9448, so the port narrows 4-fold.
+fixture), 4-fold 0.9448, so the port narrows 4-fold.  The bounds enter the
+selection clamped below BIG: an empty (padding) tile's bound is ~3e12, and
+kernel 1's rule for a row with fewer than k entries below BIG would pick
+an already chosen tile again, and so duplicate neighbours, whenever fewer
+tiles than ``probe`` hold points.
 """
 from __future__ import annotations
 
@@ -33,6 +37,7 @@ import torch
 from .. import _cuda
 
 BIG = 1e10
+LB_MAX = 0.5 * BIG      # tile lower bounds are clamped here (see above)
 NARROW_MIN_TILES = 512
 NARROW_FACTOR = 4
 
@@ -323,7 +328,7 @@ def knn_tiles(query, packed, tile_lo, tile_hi, k: int = 8,
                                           q[:, c:c + 1] - tile_hi[c][None]),
                             min=0.0)
             lb2 = lb2 + d * d
-        tsel = select_tiles(lb2, probe)
+        tsel = select_tiles(torch.clamp(lb2, max=LB_MAX), probe)
         crow = packed[tsel]                          # (qc, probe, 4*tile)
         d2 = 0.0
         for c in range(3):

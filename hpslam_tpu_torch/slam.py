@@ -160,6 +160,9 @@ class PointSLAM:
         self.params, self.exposure_feat, info = self.mapper.map(
             idx, frame, self.npc, self.params, self.exposure_feat, c2w,
             color_refine=color_refine)
+        if info["updated_c2w"] is not None:     # BA adjusted this pose
+            self.estimate_c2w_list[idx] = info["updated_c2w"]
+            c2w = info["updated_c2w"]
         dt = time.perf_counter() - t0
         if self.verbose:
             print(f"[map] frame {idx}: +{info['frame_pts_add']} locs, "

@@ -1,19 +1,34 @@
 """RGB-D frame readers (port of hpslam_tpu/utils/datasets.py).
 
-Only the procedural ``synthetic`` family is ported (the analytic textured
-cube room with an orbiting camera, its sensor model and trajectories,
-identical to the reference's); the file-backed readers (Replica, ScanNet,
-TUM, ...) raise NotImplementedError.  Frames are numpy on the host with
-lazily uploaded device tensors, and a background thread prefetches them.
+The file-backed readers (Replica, ScanNet, Azure, CoFusion, TUM RGB-D)
+follow the reference's conventions: colour file -> RGB float in [0, 1],
+undistorted first where the config gives ``cam.distortion`` (colour only);
+depth from a 16-bit PNG (or CoFusion's EXR) over ``png_depth_scale``;
+optional ``crop_size`` resize (bilinear colour, nearest depth), then the
+``crop_edge`` trim; the Replica / ScanNet / Azure / TUM poses have their y
+and z columns negated into the -z-forward camera frame; TUM associates its
+rgb / depth / pose lists by timestamp, keeps frames 1/32 s apart and
+re-bases the first pose to the identity.  Images are decoded by the
+port's own numpy PNG / EXR codecs (``image_io``, ``exr``); only JPEG
+(Replica, ScanNet, Azure colour) needs cv2, imported at the decode.
+
+Plus the procedural ``synthetic`` family (the analytic textured cube room
+with an orbiting camera, its sensor model and trajectories, identical to
+the reference's).  Frames are numpy on the host with lazily uploaded
+device tensors, and a background thread prefetches them.
 """
 from __future__ import annotations
 
+import glob
+import os
 import queue
 import threading
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from . import image_io as IO
 
 
 class Frame:
@@ -50,6 +65,226 @@ class _Reader:
         self.input_folder = input_folder or cfg["data"].get("input_folder")
         self.crop_edge = cfg["cam"].get("crop_edge", 0) or 0
         self.poses = []
+
+
+def _flip_yz(c2w: np.ndarray) -> np.ndarray:
+    c2w = c2w.copy()
+    c2w[:3, 1] *= -1
+    c2w[:3, 2] *= -1
+    return c2w
+
+
+class BaseReader(_Reader):
+    """The file readers' decode / undistort / resize / crop pipeline."""
+
+    def __init__(self, cfg: dict, input_folder: Optional[str] = None,
+                 scale: float = 1.0, device=None):
+        super().__init__(cfg, input_folder, scale, device)
+        cam = cfg["cam"]
+        self.png_depth_scale = cam["png_depth_scale"]
+        self.distortion = (np.array(cam["distortion"]) if "distortion" in cam
+                           else None)
+        self.crop_size = cam.get("crop_size")
+        self.K = np.array([[cam["fx"], 0.0, cam["cx"]],
+                           [0.0, cam["fy"], cam["cy"]], [0.0, 0.0, 1.0]])
+        self.color_paths: List[str] = []
+        self.depth_paths: List[str] = []
+
+    def __len__(self):
+        return self.n_img
+
+    @property
+    def n_img(self):
+        return len(self.color_paths)
+
+    def _decode_depth(self, path: str) -> np.ndarray:
+        if path.endswith(".exr"):
+            from .exr import read_exr_depth
+            d = read_exr_depth(path)
+            if d is None:
+                raise ValueError(f"{path}: no depth channel (Y/Z/R) found")
+        else:
+            d = IO.read_png(path)
+            if d.ndim != 2:
+                raise ValueError(f"{path}: a depth image has one channel")
+        return d.astype(np.float32) / self.png_depth_scale
+
+    def __getitem__(self, index: int) -> Frame:
+        color = IO.read_color(self.color_paths[index])
+        depth = self._decode_depth(self.depth_paths[index])
+        if self.distortion is not None:
+            color = IO.undistort(color, self.K, self.distortion)
+        color = color.astype(np.float32) / 255.0
+        depth = depth * self.scale
+        H, W = depth.shape
+        if color.shape[:2] != (H, W):
+            color = IO.resize(color, (W, H))
+        if self.crop_size is not None:
+            h, w = self.crop_size
+            color = IO.resize(color, (w, h), "linear")
+            depth = IO.resize(depth, (w, h), "nearest")
+        e = self.crop_edge
+        if e > 0:
+            color = color[e:-e, e:-e]
+            depth = depth[e:-e, e:-e]
+        c2w = self.poses[index].astype(np.float32).copy()
+        c2w[:3, 3] *= self.scale
+        return Frame(index, np.ascontiguousarray(color),
+                     np.ascontiguousarray(depth), c2w)
+
+
+class Replica(BaseReader):
+    def __init__(self, cfg, input_folder=None, scale=1.0, device=None):
+        super().__init__(cfg, input_folder, scale, device)
+        self.color_paths = sorted(
+            glob.glob(f"{self.input_folder}/results/frame*.jpg"))
+        self.depth_paths = sorted(
+            glob.glob(f"{self.input_folder}/results/depth*.png"))
+        with open(f"{self.input_folder}/traj.txt") as f:
+            lines = f.readlines()
+        self.poses = [_flip_yz(np.array(list(map(
+            float, lines[i].split()))).reshape(4, 4))
+            for i in range(len(self.color_paths))]
+
+
+class ScanNet(BaseReader):
+    def __init__(self, cfg, input_folder=None, scale=1.0, device=None):
+        super().__init__(cfg, input_folder, scale, device)
+
+        def by_num(p):
+            return int(os.path.basename(p).split(".")[0])
+
+        def listed(sub, ext):
+            return sorted(glob.glob(os.path.join(self.input_folder, sub,
+                                                 ext)), key=by_num)
+
+        self.color_paths = listed("color", "*.jpg")
+        self.depth_paths = listed("depth", "*.png")
+        for p in listed("pose", "*.txt"):
+            with open(p) as f:
+                mat = np.array([list(map(float, ln.split()))
+                                for ln in f.readlines()]).reshape(4, 4)
+            self.poses.append(_flip_yz(mat))
+
+
+class Azure(BaseReader):
+    def __init__(self, cfg, input_folder=None, scale=1.0, device=None):
+        super().__init__(cfg, input_folder, scale, device)
+        self.color_paths = sorted(
+            glob.glob(os.path.join(self.input_folder, "color", "*.jpg")))
+        self.depth_paths = sorted(
+            glob.glob(os.path.join(self.input_folder, "depth", "*.png")))
+        traj = os.path.join(self.input_folder, "scene", "trajectory.log")
+        if os.path.exists(traj):
+            with open(traj) as f:
+                content = f.readlines()
+            for i in range(0, len(content), 5):
+                mat = np.array(list(map(float, "".join(
+                    content[i + 1:i + 5]).split()))).reshape(4, 4)
+                self.poses.append(_flip_yz(mat))
+        else:
+            self.poses = [np.eye(4) for _ in self.color_paths]
+
+
+class CoFusion(BaseReader):
+    def __init__(self, cfg, input_folder=None, scale=1.0, device=None):
+        super().__init__(cfg, input_folder, scale, device)
+        self.color_paths = sorted(
+            glob.glob(os.path.join(self.input_folder, "colour", "*.png")))
+        self.depth_paths = sorted(glob.glob(
+            os.path.join(self.input_folder, "depth_noise", "*.exr")))
+        # identity stand-in poses: CoFusion's frame cannot be aligned, and
+        # the ATE's alignment absorbs it (as the reference)
+        self.poses = [np.eye(4) for _ in self.color_paths]
+
+
+class TUM_RGBD(BaseReader):
+    def __init__(self, cfg, input_folder=None, scale=1.0, device=None,
+                 frame_rate: int = 32):
+        super().__init__(cfg, input_folder, scale, device)
+        self._load(self.input_folder, frame_rate)
+
+    @staticmethod
+    def _parse_list(path, skiprows=0):
+        return np.loadtxt(path, delimiter=" ", dtype=np.str_,
+                          skiprows=skiprows)
+
+    @staticmethod
+    def _associate(t_img, t_depth, t_pose, max_dt=0.08):
+        pairs = []
+        for i, t in enumerate(t_img):
+            j = int(np.argmin(np.abs(t_depth - t)))
+            k = int(np.argmin(np.abs(t_pose - t)))
+            if abs(t_depth[j] - t) < max_dt and abs(t_pose[k] - t) < max_dt:
+                pairs.append((i, j, k))
+        return pairs
+
+    def _load(self, folder, frame_rate):
+        from scipy.spatial.transform import Rotation
+        pose_file = os.path.join(folder, "groundtruth.txt")
+        if not os.path.isfile(pose_file):
+            pose_file = os.path.join(folder, "pose.txt")
+        img = self._parse_list(os.path.join(folder, "rgb.txt"))
+        dep = self._parse_list(os.path.join(folder, "depth.txt"))
+        pose = self._parse_list(pose_file, skiprows=1)
+        pose_vecs = pose[:, 1:].astype(np.float64)
+        t_img = img[:, 0].astype(np.float64)
+        t_dep = dep[:, 0].astype(np.float64)
+        t_pose = pose[:, 0].astype(np.float64)
+        assoc = self._associate(t_img, t_dep, t_pose)
+        # keep frames more than 1/frame_rate s after the last kept one
+        picks = [0]
+        for i in range(1, len(assoc)):
+            t0 = t_img[assoc[picks[-1]][0]]
+            if t_img[assoc[i][0]] - t0 > 1.0 / frame_rate:
+                picks.append(i)
+        inv_first = None
+        for ix in picks:
+            i, j, k = assoc[ix]
+            self.color_paths.append(os.path.join(folder, str(img[i, 1])))
+            self.depth_paths.append(os.path.join(folder, str(dep[j, 1])))
+            c2w = np.eye(4)
+            c2w[:3, :3] = Rotation.from_quat(pose_vecs[k][3:]).as_matrix()
+            c2w[:3, 3] = pose_vecs[k][:3]
+            if inv_first is None:
+                inv_first = np.linalg.inv(c2w)
+                c2w = np.eye(4)
+            else:
+                c2w = inv_first @ c2w
+            self.poses.append(_flip_yz(c2w))
+
+
+def write_tum_rgbd(folder: str, frames, png_depth_scale: float = 5000.0,
+                   t0: float = 1305031102.175304, dt: float = 1.0 / 30):
+    """Write frames (RGB colour in [0, 1], depth in metres, c2w in the
+    readers' -z-forward frame) as a TUM RGB-D tree that ``TUM_RGBD`` reads
+    back: rgb/ 8-bit PNG, depth/ 16-bit PNG at png_depth_scale (rows
+    filtered by libpng's adaptive choice, as in the dataset), rgb.txt,
+    depth.txt and groundtruth.txt (timestamps dt apart, poses with y and z
+    flipped back, quaternions x y z w).  The reader re-bases the first pose
+    to the identity."""
+    from scipy.spatial.transform import Rotation
+    for sub in ("rgb", "depth"):
+        os.makedirs(os.path.join(folder, sub), exist_ok=True)
+    rgb, dep, gt = [], [], ["# timestamp tx ty tz qx qy qz qw"]
+    for i, fr in enumerate(frames):
+        t = f"{t0 + i * dt:.6f}"
+        IO.write_png(os.path.join(folder, "rgb", t + ".png"),
+                     np.round(np.clip(fr.color, 0, 1) * 255).astype(
+                         np.uint8))
+        IO.write_png(os.path.join(folder, "depth", t + ".png"),
+                     np.round(np.clip(fr.depth * png_depth_scale, 0, 65535)
+                              ).astype(np.uint16))
+        rgb.append(f"{t} rgb/{t}.png")
+        dep.append(f"{t} depth/{t}.png")
+        pose = _flip_yz(np.asarray(fr.c2w, np.float64))
+        q = Rotation.from_matrix(pose[:3, :3]).as_quat()
+        gt.append(t + " " + " ".join(repr(float(v)) for v in
+                                     list(pose[:3, 3]) + list(q)))
+    for name, lines in (("rgb.txt", rgb), ("depth.txt", dep),
+                        ("groundtruth.txt", gt)):
+        with open(os.path.join(folder, name), "w") as f:
+            f.write("\n".join(lines) + "\n")
 
 
 class Synthetic(_Reader):
@@ -205,13 +440,19 @@ class Synthetic(_Reader):
                      np.ascontiguousarray(depth), c2w.astype(np.float32))
 
 
+dataset_registry = {
+    "replica": Replica,
+    "scannet": ScanNet,
+    "cofusion": CoFusion,
+    "azure": Azure,
+    "tumrgbd": TUM_RGBD,
+    "synthetic": Synthetic,
+}
+
+
 def get_dataset(cfg: dict, input_folder: Optional[str] = None,
                 scale: float = 1.0, device=None):
-    if cfg["dataset"] != "synthetic":
-        raise NotImplementedError(
-            f"dataset {cfg['dataset']!r} is not ported yet (only "
-            "'synthetic'); see ROADMAP.md")
-    return Synthetic(cfg, input_folder, scale, device)
+    return dataset_registry[cfg["dataset"]](cfg, input_folder, scale, device)
 
 
 class Prefetcher:

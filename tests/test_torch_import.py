@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: importing it pulls in neither jax nor
-hpslam_tpu, no port file (nor chip_smoke.py) imports them, and the entry
-points refuse to drift onto the CPU."""
+hpslam_tpu (nor cv2, which only the JPEG decode imports, at the call), no
+port file (nor chip_smoke.py) imports them, and the entry points refuse to
+drift onto the CPU."""
 import os
 import re
 import subprocess
@@ -59,6 +60,32 @@ def test_sources_do_not_mention_jax_or_reference_imports():
                 offenders.append(f"{os.path.relpath(path, ROOT)}: "
                                  f"{m.group(0).strip()}")
     assert not offenders, offenders
+
+
+def test_cv2_only_inside_the_jpeg_decode():
+    """The card's machine has no cv2: no port module (nor chip_smoke.py)
+    imports it at module level, importing every module leaves it out, and
+    the one import sits in image_io.read_color's JPEG branch."""
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, fs in os.walk(PKG):
+        files += [os.path.join(dirpath, f) for f in fs if f.endswith(".py")]
+    inside = []
+    for path in files:
+        with open(path) as f:
+            src = f.read()
+        assert not re.search(r"^(import|from)\s+cv2\b", src, re.M), path
+        if re.search(r"^\s+(import|from)\s+cv2\b", src, re.M):
+            inside.append(os.path.relpath(path, ROOT))
+    assert inside == [os.path.join("hpslam_tpu_torch", "utils",
+                                   "image_io.py")]
+    code = ("import importlib, sys\n"
+            f"for m in {_port_modules()!r}:\n"
+            "    importlib.import_module(m)\n"
+            "assert 'cv2' not in sys.modules\n"
+            "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
 
 
 def test_entry_points_refuse_cpu_drift(monkeypatch):

@@ -111,6 +111,30 @@ def test_knn_tiles_distances_and_recall(rng, n_cap, count, probe):
                                atol=1e-9)
 
 
+@pytest.mark.parametrize("n_cap,count,probe", [(2048, 1600, 16),
+                                               (8192, 300, 12),
+                                               (65536, 1000, 16)])
+def test_knn_tiles_fewer_filled_tiles_than_probe(rng, n_cap, count, probe):
+    """With fewer tiles holding points than ``probe`` (early in a run, or
+    the small mapping fixtures), every tile is searched once: no neighbour
+    repeats, and the result is the exact one; below 512 tiles (the exact
+    tile selection in both packages) the reference's too."""
+    pts = _wall_cloud(rng, n_cap, count)
+    q = pts[rng.integers(0, count, 300)] + rng.normal(
+        0, 0.05, (300, 3)).astype(np.float32)
+    Dt, It = tK.knn_tiles(torch.tensor(q), *tK.build_tiles(
+        torch.tensor(pts), count), k=8, probe=probe)
+    Do, Io = tK.knn(torch.tensor(q), torch.tensor(pts), count, k=8)
+    Dj, _ = jK.knn_tiles(jnp.asarray(q),
+                         *jK.build_tiles(jnp.asarray(pts), jnp.int32(count)),
+                         k=8, probe=probe)
+    assert all(len(set(r)) == 8 for r in It.numpy())
+    np.testing.assert_allclose(Dt.numpy(), Do.numpy(), rtol=1e-6, atol=1e-9)
+    if n_cap // 128 < tK.NARROW_MIN_TILES:
+        np.testing.assert_allclose(Dt.numpy(), np.asarray(Dj), rtol=1e-6,
+                                   atol=1e-9)
+
+
 def test_knn_exact_matches_reference(rng):
     pts = _wall_cloud(rng, 1024, 700)
     q = rng.uniform(-1.5, 1.5, (90, 3)).astype(np.float32)
