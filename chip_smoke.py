@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases device,build,topk,maploss
     python3 chip_smoke.py --phases device,build,trunks,trackloss
     python3 chip_smoke.py --phases device,build,band      # ATE band, ~7 min
+    python3 chip_smoke.py --phases device,build,quality   # repro_quality.sh
 
 Phases, each printed as one JSON line when it starts and when it ends:
   device   nvidia-smi's name and power limit, torch's device name
@@ -67,16 +68,41 @@ Phases, each printed as one JSON line when it starts and when it ends:
   slam_ba  the slam run with mapping.BA on and keyframes and mappings
            every 2nd frame, so that the last mapping bundle-adjusts: the
            per-sample mapper in tracker mode on the fused trunks (#4-5)
+  slam_vis the slam run with tracking and mapping panels at frame 5
+           (vis_freq 5), the fine level's rendered image and a checkpoint
+           at frame 5: the panels and the image decoded to their shapes,
+           the fine level's depth residual (under 0.05 m) and colour PSNR,
+           render_img's ms per 120x160 image and level; the trajectory and
+           ATE must be slam's bit for bit; #4 launched (the renders are
+           its only callers on this config), #5 not
+  resume   slam_vis's frame-5 checkpoint copied to a fresh output and
+           resumed to frame 9 through the CLI: keyframes carried over,
+           points no fewer, poses 0-5 equal, 6-9 filled, ATE under the
+           limit; whether the trajectory equals slam_vis's bit for bit
+  mesh     the meshing CLI on slam_vis's final checkpoint (every 5th
+           frame rendered, voxel 5/512 m), the synthetic room's GT mesh
+           culled by the run's poses, accuracy / completion / F-score
+           (accuracy under 5 cm); the render's and the fusion's seconds
+  loop     configs/Synthetic/synth_loop.yaml, all 60 frames, iterations
+           cut (LOOP_CUTS): the end correction is applied and lowers the
+           ATE of the same trajectory (its last checkpoint) evaluated
+           before it
   repeat   the deterministic scatter-add (ops.interpolate.index_add_rows)
            three times on the same inputs, bitwise; then every SLAM run of
            this process again, whose trajectory and ATE must equal the
-           first run's bitwise
+           first run's bitwise (slam's second run is slam_vis, the same
+           config and seed with panels, so slam does not run a third time)
   kernels  one JSON line describing every ported kernel, with its bound
            at the f32 rate (bound_ms) and with the operations on the
            tensor cores at f32 accuracy (tc_bound_ms, 3xTF32)
   band     (only when named in --phases) synth_tpu.yaml and
            synth_noisy.yaml for all 30 frames at seeds 0, 1, 2 on the slam
            and slam_fused paths: each ATE beside the reference's band
+  quality  (only when named in --phases) repro_quality.sh on the port:
+           synth_quality.yaml's 120 frames, its mesh at voxel 5/512 m
+           against the culled GT box (accuracy, completion, F-score), then
+           synth_loop.yaml uncut with its end correction; beside the
+           reference's numbers (TPU history)
 
 The last line is {"ok": true, "device": {...}}, printed only when every
 phase passed; any failure exits non-zero.  Without CUDA, or without the
@@ -99,7 +125,8 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ["device", "build", "topk", "maploss", "trunks", "trackloss",
           "composite", "slam", "slam_fused", "slam_mesh", "slam_tum",
-          "slam_ba", "repeat", "kernels"]
+          "slam_ba", "slam_vis", "resume", "mesh", "loop", "repeat",
+          "kernels"]
 SLAM_PHASES = ["slam", "slam_fused", "slam_mesh", "slam_tum", "slam_ba"]
 
 # H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W power limit)
@@ -215,12 +242,32 @@ def ptxas_kernels(log: str) -> dict:
 
 
 def run_build(out_dir: str) -> dict:
+    """Every kernel source (one nvcc each, all at once) and, beside them,
+    the native C++ runtime that end correction and meshing use."""
+    import threading
+
     from hpslam_tpu_torch import _cuda
+    from hpslam_tpu_torch import native
     d = _cuda.build_dir()
     lock = os.path.join(d, "lock")
     if os.path.exists(lock):
         os.remove(lock)
+    nat: dict = {}
+
+    def build_native():
+        t0 = time.perf_counter()
+        try:
+            nat["library"] = os.path.basename(native.build())
+        except BaseException as e:      # re-raised below
+            nat["error"] = e
+        nat["seconds"] = time.perf_counter() - t0
+
+    th = threading.Thread(target=build_native)
+    th.start()
     logs = _cuda.build_all(extra=("-Xptxas", "-v"))
+    th.join()
+    if "error" in nat:
+        raise nat["error"]
     with open(os.path.join(out_dir, "ptxas.txt"), "w") as f:
         for name, log in logs.items():
             f.write(f"== {name}\n{log}\n")
@@ -228,7 +275,7 @@ def run_build(out_dir: str) -> dict:
                for k, v in ptxas_kernels(log).items()}
     for name in logs:
         _cuda.lib(name)
-    return {"built": sorted(logs),
+    return {"built": sorted(logs), "native": nat,
             "spilling_kernels": sorted(k for k, v in kernels.items()
                                        if v.get("spill_bytes")),
             "tile_kernels": {k: v for k, v in sorted(kernels.items())
@@ -1527,9 +1574,34 @@ def merged(*parts: dict) -> dict:
 
 
 SYNTH_CFG = "configs/Synthetic/synth_tpu.yaml"
-NO_VIS = {"tracking": {"vis_freq": 1000}, "mapping": {"vis_freq": 1000}}
-# the synthetic runs: synth_tpu.yaml cut to 10 frames, vis panels off
-SYNTH_CUTS = merged(NO_VIS, {"synthetic": {"n_frames": 10}})
+# the synthetic runs: synth_tpu.yaml cut to 10 frames (its vis_freq of 50
+# and no_vis_on_first_frame fire no panel in them)
+SYNTH_CUTS = {"synthetic": {"n_frames": 10}}
+# slam_vis: panels of frame 5 (tracking and mapping, both levels), the
+# fine level's rendered image, a checkpoint at frame 5 for resume
+VIS_FRAME = 5
+VIS = {"tracking": {"vis_freq": VIS_FRAME},
+       "mapping": {"vis_freq": VIS_FRAME, "save_rendered_image": True,
+                   "ckpt_freq": VIS_FRAME}}
+VIS_DEPTH_L1_MAX_M = 0.05
+MESH_ACC_MAX_CM = 5.0
+MESH_VOXEL = 5.0 / 512
+LOOP_CFG = "configs/Synthetic/synth_loop.yaml"
+# loop: all 60 frames (the orbit must close), iterations cut for time
+LOOP_CUTS = {"tracking.iters": "60 -> 20", "mapping.iters": "150 -> 40",
+             "mapping.iters_first": "200 -> 80",
+             "mapping.geo_iter_first": "80 -> 30"}
+LOOP_ADDITIONS = {"tracking": {"iters": 20},
+                  "mapping": {"iters": 40, "iters_first": 80,
+                              "geo_iter_first": 30}}
+QUALITY_CFG = "configs/Synthetic/synth_quality.yaml"
+# the reference's numbers (TPU history, QUALITY.md), beside the quality
+# phase's
+QUALITY_REFERENCE = {"synth_quality": {"ate_cm": 1.35, "accuracy_cm": 0.96,
+                                       "completion_cm": 1.43,
+                                       "fscore": 0.458},
+                     "synth_loop": {"ate_cm_end_correction_on": 21.75,
+                                    "ate_cm_end_correction_off": 39.52}}
 FUSED = {"tracking": {"fused_loss": True},
          "model": {"fused_composite": False}}
 TUM_CFG = "configs/TUM_RGBD/freiburg1_desk.yaml"
@@ -1545,11 +1617,10 @@ TUM_CUTS = {
     "mapping.iters_first": "1500 -> 150",
     "mapping.geo_iter_first": "400 -> 40",
     "mapping.iters": "300 -> 60",
-    "vis_freq": "50 -> 1000 (past the end)",
 }
-TUM_ADDITIONS = merged(NO_VIS, {
+TUM_ADDITIONS = {
     "cam": {"distortion": [0.0] * 5}, "tracking": {"iters": 30},
-    "mapping": {"iters_first": 150, "geo_iter_first": 40, "iters": 60}})
+    "mapping": {"iters_first": 150, "geo_iter_first": 40, "iters": 60}}
 # the fused kernels that the per-sample paths must not reach
 _MAPLOSS = ("maploss_fwd", "maploss_bwd")
 _TRACKLOSS = ("trackloss_fwd", "trackloss_bwd")
@@ -1589,11 +1660,20 @@ SLAM_RUNS = {
     "slam_ba": (SYNTH_CFG, merged(SYNTH_CUTS, {"mapping": {
         "BA": True, "every_frame": 2, "keyframe_every": 2}}),
         ("topk_rows", "maploss_bwd") + _TRUNKS, _TRACKLOSS + _COMPOSITE),
+    # the slam run with panels at frame 5: the renders (render_img, no
+    # gradient) are the only callers of the fused trunks on this config,
+    # so #4 launched and #5 not proves that they went through #4
+    "slam_vis": (SYNTH_CFG, merged(SYNTH_CUTS, VIS),
+                 ("topk_rows", "maploss_bwd", "trunks_fwd"),
+                 ("trunks_bwd",) + _TRACKLOSS + _COMPOSITE),
+    # synth_loop.yaml's 60 frames with end correction (panels at frame 50)
+    "loop": (LOOP_CFG, LOOP_ADDITIONS, ("topk_rows", "maploss_bwd"),
+             ("trunks_bwd",) + _TRACKLOSS + _COMPOSITE),
 }
 # the band: 30-frame runs of two configs on two paths at three seeds
 BAND_CONFIGS = {"synth_tpu": SYNTH_CFG,
                 "synth_noisy": "configs/Synthetic/synth_noisy.yaml"}
-BAND_PATHS = {"slam": NO_VIS, "slam_fused": merged(NO_VIS, FUSED)}
+BAND_PATHS = {"slam": {}, "slam_fused": FUSED}
 BAND_SEEDS = (0, 1, 2)
 # the reference's 30-frame ATE (cm) on the TPU at its seeds (history, the
 # band the port is held to; ABLATIONS.md round 5, QUALITY.md)
@@ -1711,13 +1791,16 @@ def check_tum_decode(cfg_path: str, tree: str, first: dict) -> dict:
 
 
 def run_slam(out_dir: str, name: str = "slam", profile: bool = False,
-             tag: str = "", spec=None, seed=None, max_ate=ATE_MAX_M):
+             tag: str = "", spec=None, seed=None, max_ate=ATE_MAX_M,
+             keep: bool = False):
     """One SLAM run through the port's CLI entry point on ``spec`` (by
     default SLAM_RUNS[name]: config, additions, kernels launched and not),
     at ``seed`` where given; for slam_tum on a TUM tree written first.
     Fails on the kernels or an ATE of max_ate or more (None: no limit).
     With ``profile`` the same run is repeated under torch.profiler (the
     first run is its warm-up) and its summary returned under "profile".
+    With ``keep`` the run's temporary directory stays (its path under
+    "work": smoke.yaml, the output in out/) for the caller to remove.
     Returns (summary, estimated trajectory from the run's last
     checkpoint)."""
     import torch
@@ -1753,12 +1836,17 @@ def run_slam(out_dir: str, name: str = "slam", profile: bool = False,
                 if profile else None)
         traj = load_checkpoint(latest_checkpoint(os.path.join(
             work, "out")))["estimate_c2w_list"]
-    finally:
+    except BaseException:
+        shutil.rmtree(work, ignore_errors=True)
+        raise
+    if not keep:
         shutil.rmtree(work, ignore_errors=True)
     ate = results["absolute_translational_error.rmse"]
     out = {"ate_rmse_m": ate, "track_ms_mean": summary["track_ms_mean"],
            "map_ms_mean": summary["map_ms_mean"],
            "n_frames": summary["n_frames"], "launches": launches}
+    if keep:
+        out["work"] = work
     if name == "slam_tum":
         out["decode"] = decode
         out["cuts"] = TUM_CUTS
@@ -1802,15 +1890,23 @@ def run_band(out_dir: str) -> dict:
     return out
 
 
-def run_repeat(out_dir: str, first: dict) -> dict:
+def run_repeat(out_dir: str, first: dict, served=None) -> dict:
     """The scatter check, then each SLAM run of ``first`` ({name: (summary,
     trajectory)}) again in this process: the estimated trajectories and
-    the ATEs must be bitwise equal."""
+    the ATEs must be bitwise equal.  ``served`` ({name: (phase, (summary,
+    trajectory))}) names runs that a later phase already ran again on the
+    same config and seed (slam_vis repeats slam, with panels): they are
+    compared, not run a third time."""
     import numpy as np
+    served = served or {}
     out = {"scatter": run_scatter_repeat()}
     bad = []
     for name, (s0, traj0) in first.items():
-        s1, traj1 = run_slam(out_dir, name, tag="_repeat")
+        if name in served:
+            by, (s1, traj1) = served[name]
+        else:
+            by = None
+            s1, traj1 = run_slam(out_dir, name, tag="_repeat")
         same = bool(np.array_equal(traj0, traj1))
         out[name] = {
             "trajectory_bitwise_equal": same,
@@ -1822,12 +1918,255 @@ def run_repeat(out_dir: str, first: dict) -> dict:
                  if not np.array_equal(traj0[i], traj1[i])), None),
             "track_ms_mean": s1["track_ms_mean"],
             "map_ms_mean": s1["map_ms_mean"]}
+        if by:
+            out[name]["served_by"] = by
         if not (same and out[name]["ate_bitwise_equal"]):
             bad.append(name)
     if bad:
         emit({"repeat": out})
         raise AssertionError(f"runs do not repeat: {bad}")
     return out
+
+
+def read_events(out: str, event: str) -> list:
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        return [r for r in map(json.loads, f) if r["event"] == event]
+
+
+def check_panels(out: str, H: int, W: int) -> dict:
+    """slam_vis's files: the tracking and mapping panels of frame VIS_FRAME
+    for both levels and its rendered image, each decoded by the port's PNG
+    reader to the expected shape; the fine level's mapping residuals."""
+    from hpslam_tpu_torch.utils import image_io as IO
+    files = {}
+    for sub in ("tracking_vis", "mapping_vis"):
+        names = sorted(os.listdir(os.path.join(out, sub)))
+        frames = sorted({int(n[:5]) for n in names})
+        levels = sorted(n.rsplit("_", 1)[1][:-4] for n in names)
+        if frames != [VIS_FRAME] or levels != ["fine", "mid"]:
+            raise AssertionError(f"{sub}: {names}")
+        for n in names:
+            if IO.read_png(os.path.join(out, sub, n)).shape != (2 * H, 3 * W,
+                                                               3):
+                raise AssertionError(f"{sub}/{n}: shape")
+        files[sub] = names
+    img = os.path.join(out, "rendered_image", f"frame_{VIS_FRAME:05d}.png")
+    if IO.read_png(img).shape != (H, W, 3):
+        raise AssertionError(f"{img}: shape")
+    vis = read_events(out, "vis")
+    fine = [e for e in vis if e["what"] == "mapping" and e["level"] == "fine"
+            and e["idx"] == VIS_FRAME]
+    if len(vis) != 4 or len(fine) != 1:
+        raise AssertionError(f"vis events: {vis}")
+    if not fine[0]["depth_l1_m"] < VIS_DEPTH_L1_MAX_M:
+        raise AssertionError(f"depth residual {fine[0]['depth_l1_m']} m")
+    return {"files": files, "rendered_image": os.path.basename(img),
+            "mapping_fine_depth_l1_m": fine[0]["depth_l1_m"],
+            "mapping_fine_psnr_db": fine[0]["psnr_db"],
+            "depth_l1_max_m": VIS_DEPTH_L1_MAX_M,
+            "render_img_ms": [{k: e[k] for k in ("what", "level",
+                                                 "render_ms")}
+                              for e in vis],
+            "render_img_ms_per_image_level": sum(
+                e["render_ms"] for e in vis) / len(vis),
+            "image": [H, W]}
+
+
+def run_slam_vis(out_dir: str, first: dict):
+    """The slam run with panels at frame VIS_FRAME, kept for resume and
+    mesh.  Its trajectory and ATE must be slam's (when slam ran in this
+    process) bit for bit: rendering changes nothing."""
+    import numpy as np
+    s, traj = run_slam(out_dir, "slam_vis", keep=True)
+    try:
+        from hpslam_tpu_torch import config as C
+        cfg = C.load_config(os.path.join(s["work"], "smoke.yaml"),
+                            C.default_config_path())
+        s["panels"] = check_panels(os.path.join(s["work"], "out"),
+                                   cfg["cam"]["H"], cfg["cam"]["W"])
+        if "slam" in first:
+            s0, traj0 = first["slam"]
+            s["trajectory_bitwise_slam"] = bool(np.array_equal(traj, traj0))
+            s["ate_bitwise_slam"] = s["ate_rmse_m"] == s0["ate_rmse_m"]
+            if not (s["trajectory_bitwise_slam"] and s["ate_bitwise_slam"]):
+                raise AssertionError("the panels changed the run: ATE "
+                                     f"{s['ate_rmse_m']} vs "
+                                     f"{s0['ate_rmse_m']}")
+    except BaseException:
+        shutil.rmtree(s["work"], ignore_errors=True)
+        raise
+    return s, traj
+
+
+def run_resume(vis: dict, traj_vis) -> dict:
+    """slam_vis's frame-5 checkpoint copied into a fresh output directory
+    and resumed to the end through the CLI (--resume): the checks of
+    tests/test_resume.py, and whether the trajectory is slam_vis's bit for
+    bit."""
+    import numpy as np
+    import torch
+    from hpslam_tpu_torch import _cuda
+    from hpslam_tpu_torch import run as R
+    from hpslam_tpu_torch.utils.logger import (latest_checkpoint,
+                                               load_checkpoint)
+    work = vis["work"]
+    out = os.path.join(work, "resume")
+    ck = os.path.join(work, "out", "ckpts", f"{VIS_FRAME:05d}.ckpt")
+    os.makedirs(os.path.join(out, "ckpts"))
+    shutil.copy(ck, os.path.join(out, "ckpts"))
+    state0 = load_checkpoint(ck)
+    _cuda.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results, summary = R.run([os.path.join(work, "smoke.yaml"),
+                              "--input_folder", os.path.join(work, "in"),
+                              "--output", out, "--resume"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    state = load_checkpoint(latest_checkpoint(out))
+    traj = state["estimate_c2w_list"]
+    n0 = VIS_FRAME + 1
+    kf0 = list(state0["keyframe_list"])
+    ate = results["absolute_translational_error.rmse"]
+    checks = {
+        "keyframes_carried": list(state["keyframe_list"][:len(kf0)]) == kf0,
+        "points_no_fewer": all(state["pts_num"][k] >= state0["pts_num"][k]
+                               for k in state0["pts_num"]),
+        "poses_0_5_equal": bool(np.array_equal(
+            traj[:n0], state0["estimate_c2w_list"][:n0])),
+        "poses_6_9_filled": bool(np.abs(traj[n0:]).sum() > 0
+                                 and np.isfinite(traj[n0:]).all()),
+        "ate_finite_under_limit": bool(np.isfinite(ate) and ate < ATE_MAX_M),
+        "topk_rows_launched": launches.get("topk_rows", 0) > 0}
+    out_rec = {"checkpoint": os.path.basename(ck), "resumed_at": n0,
+               "ate_rmse_m": ate, "seconds": seconds,
+               "track_ms_mean": summary["track_ms_mean"],
+               "map_ms_mean": summary["map_ms_mean"], "launches": launches,
+               "checks": checks,
+               "trajectory_bitwise_uninterrupted": bool(
+                   np.array_equal(traj, traj_vis)),
+               "ate_bitwise_uninterrupted": ate == vis["ate_rmse_m"],
+               "max_abs_pose_diff_uninterrupted": float(
+                   np.abs(traj - traj_vis).max())}
+    if not all(checks.values()):
+        raise AssertionError(f"resume: {out_rec}")
+    return out_rec
+
+
+def mesh_and_metrics(cfg_path: str, run_out: str, render_every: int,
+                     gt_res: int = 60, launched=()) -> dict:
+    """repro_quality.sh's steps on the port: the TSDF mesh of the run's
+    latest checkpoint through the meshing CLI, the synthetic room's GT mesh,
+    the GT culled by the run's poses, and the reconstruction metrics."""
+    import torch
+    from hpslam_tpu_torch import _cuda
+    from hpslam_tpu_torch.tools import cull_mesh as CM
+    from hpslam_tpu_torch.tools import get_mesh_tsdf_fusion as MT
+    from hpslam_tpu_torch.tools import make_synth_gt_mesh as GT
+    from hpslam_tpu_torch.tools.eval_recon import eval_recon_3d
+    mdir = os.path.join(run_out, "mesh")
+    _cuda.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if MT.main([cfg_path, "--output", run_out, "--render_every",
+                str(render_every), "--voxel_size", repr(MESH_VOXEL),
+                "--no_eval", "-s"]) != 0:
+        raise AssertionError("get_mesh_tsdf_fusion failed")
+    torch.cuda.synchronize()
+    t_cli = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    with open(os.path.join(mdir, "final_mesh.json")) as f:
+        stats = json.load(f)
+    gt = os.path.join(mdir, "gt_mesh.ply")
+    culled = os.path.join(mdir, "gt_mesh_culled.ply")
+    t0 = time.perf_counter()
+    GT.main([gt, "--res", str(gt_res)])
+    CM.main([cfg_path, gt, "--output", run_out, "--out_mesh", culled])
+    t_gt = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    metrics = eval_recon_3d(os.path.join(mdir, "final_mesh.ply"), culled)
+    out = {"verts": stats["verts"], "faces": stats["faces"],
+           "frames_rendered": stats["frames"], "voxel_m": MESH_VOXEL,
+           "render_s": stats["render_s"], "fuse_s": stats["fuse_s"],
+           "extract_s": stats["extract_s"], "cli_s": t_cli,
+           "gt_and_cull_s": t_gt, "eval_s": time.perf_counter() - t0,
+           "launches": launches, **metrics}
+    for k in launched:
+        if launches.get(k, 0) <= 0:
+            raise AssertionError(f"meshing did not launch {k}")
+    if not (out["faces"] > 0 and metrics["accuracy_cm"] < MESH_ACC_MAX_CM):
+        raise AssertionError(f"mesh: {out}")
+    out["accuracy_max_cm"] = MESH_ACC_MAX_CM
+    return out
+
+
+def run_mesh(vis: dict) -> dict:
+    """The mesh of slam_vis's final checkpoint (every 5th frame rendered,
+    voxel 5/512) against the culled GT box."""
+    return mesh_and_metrics(os.path.join(vis["work"], "smoke.yaml"),
+                            os.path.join(vis["work"], "out"), 5,
+                            launched=("topk_rows", "trunks_fwd"))
+
+
+def end_correction_ates(s: dict) -> dict:
+    """A kept run's end_correction event and the ATE of its trajectory
+    before the correction (its last checkpoint, written before the
+    correction) beside the run's ATE after it."""
+    from hpslam_tpu_torch.tools.eval_ate import evaluate_trajectory
+    from hpslam_tpu_torch.utils.logger import (latest_checkpoint,
+                                               load_checkpoint)
+    out = os.path.join(s["work"], "out")
+    ev = read_events(out, "end_correction")
+    state = load_checkpoint(latest_checkpoint(out))
+    n = len(state["estimate_c2w_list"])
+    before = evaluate_trajectory(state["gt_c2w_list"],
+                                 state["estimate_c2w_list"], n - 1,
+                                 plot=None, use_alignment=True)
+    return {"end_correction": ev,
+            "ate_before_correction_m":
+                before["absolute_translational_error.rmse"],
+            "ate_after_correction_m": s["ate_rmse_m"]}
+
+
+def run_loop(out_dir: str) -> dict:
+    """synth_loop.yaml, all 60 frames, iterations cut (LOOP_CUTS): the end
+    correction is applied and lowers the ATE."""
+    s, _traj = run_slam(out_dir, "loop", keep=True, max_ate=None)
+    try:
+        s.update(end_correction_ates(s))
+    finally:
+        shutil.rmtree(s.pop("work"), ignore_errors=True)
+    s["cuts"] = LOOP_CUTS
+    ev = s["end_correction"]
+    if not (len(ev) == 1 and ev[0]["applied"]
+            and s["ate_after_correction_m"] < s["ate_before_correction_m"]):
+        raise AssertionError(f"loop: {s}")
+    return s
+
+
+def run_quality(out_dir: str) -> dict:
+    """repro_quality.sh on the port: synth_quality.yaml's 120 frames, the
+    mesh (voxel 5/512, every 5th frame), the culled GT and the metrics;
+    then synth_loop.yaml uncut.  Reports beside the reference's numbers;
+    holds no limit but the mesh's sanity bound."""
+    s, _traj = run_slam(out_dir, "quality", spec=(QUALITY_CFG, {}, (), ()),
+                        keep=True, max_ate=None)
+    try:
+        s["mesh"] = mesh_and_metrics(os.path.join(s["work"], "smoke.yaml"),
+                                     os.path.join(s["work"], "out"), 5)
+    finally:
+        shutil.rmtree(s.pop("work"), ignore_errors=True)
+    emit({"quality_synth_quality": s})
+    loop, _traj = run_slam(out_dir, "quality_loop",
+                           spec=(LOOP_CFG, {}, (), ()), keep=True,
+                           max_ate=None)
+    try:
+        loop.update(end_correction_ates(loop))
+    finally:
+        shutil.rmtree(loop.pop("work"), ignore_errors=True)
+    return {"reference": QUALITY_REFERENCE, "synth_quality": s,
+            "synth_loop": loop}
 
 
 KERNELS = [
@@ -1916,12 +2255,38 @@ def main(argv=None) -> int:
                     if not launches.get(k):
                         launches[k] = v
                 emit(s)
+    vis = None
+    served = {}
+    try:
+        if "slam_vis" in phases:
+            with phase("slam_vis", seconds):
+                vis, traj_vis = run_slam_vis(out_dir, first_runs)
+                if "slam" in first_runs:
+                    served["slam"] = ("slam_vis", (vis, traj_vis))
+                emit({"slam_vis": {k: v for k, v in vis.items()
+                                   if k != "work"}})
+        for name, fn in (("resume", lambda: run_resume(vis, traj_vis)),
+                         ("mesh", lambda: run_mesh(vis))):
+            if name in phases:
+                with phase(name, seconds):
+                    if vis is None:
+                        raise AssertionError(f"{name} needs slam_vis")
+                    emit({name: fn()})
+    finally:
+        if vis is not None:
+            shutil.rmtree(vis["work"], ignore_errors=True)
+    if "loop" in phases:
+        with phase("loop", seconds):
+            emit({"loop": run_loop(out_dir)})
     if "repeat" in phases:
         with phase("repeat", seconds):
-            emit({"repeat": run_repeat(out_dir, first_runs)})
+            emit({"repeat": run_repeat(out_dir, first_runs, served)})
     if "band" in phases:
         with phase("band", seconds):
             emit({"band": run_band(out_dir)})
+    if "quality" in phases:
+        with phase("quality", seconds):
+            emit({"quality": run_quality(out_dir)})
     if "kernels" in phases:
         with phase("kernels", seconds):
             rows = []

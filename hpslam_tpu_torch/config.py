@@ -31,6 +31,12 @@ def update_recursive(dst: dict, src: dict) -> dict:
     return dst
 
 
+def default_config_path() -> str:
+    """configs/point_slam.yaml of this checkout."""
+    return os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "configs", "point_slam.yaml")
+
+
 def load_config(path: str, default_path: Optional[str] = None) -> dict:
     """Load a config file, following its ``inherit_from`` chain."""
     with open(path, "r") as f:

@@ -442,7 +442,7 @@ def exposure_rows(col_dec, expo_stack, expo_feat, F_actual: int, fid):
         ef = torch.cat([ef[:F_actual - 1], expo_feat[None], ef[F_actual:]])
     rots, transs = Dec.exposure_affine(col_dec, ef)
     oh = (fid[:, None] == torch.arange(F_max, device=fid.device)[None, :]
-          ).float()
+          ).to(rots.dtype)
     return oh @ torch.cat([rots.reshape(F_max, 9), transs], dim=1)
 
 
@@ -1006,27 +1006,34 @@ class Mapper:
             return False
         if not np.isfinite(gt_c2w).all():
             return False
-        dev = self.slam.device
         self.keyframe_list.append(idx)
+        self.keyframe_dict.append(self.keyframe_entry(
+            idx, frame, c2w, gt_c2w, r_query, exposure_feat))
+        return True
+
+    def keyframe_entry(self, idx, frame, c2w, gt_c2w, r_query,
+                       exposure_feat) -> dict:
+        """A keyframe's registry entry: host images, poses and radii, and
+        their device tensors (keys ending in "_t", which the Logger
+        strips)."""
+        dev = self.slam.device
         H, W = frame.depth.shape
         pool = IM.valid_pixel_pool(frame.depth, 0, H, 0, W)
         pj = np.zeros((H * W,), np.int64)
         pj[:pool.size] = pool
-        # keys ending in "_t" are device tensors; the Logger strips them
-        self.keyframe_dict.append({
+        return {
             "idx": idx,
             "color": frame.color.copy(),
             "depth": frame.depth.copy(),
-            "gt_c2w": gt_c2w.copy(),
-            "est_c2w": c2w.copy(),
+            "gt_c2w": np.array(gt_c2w, copy=True),
+            "est_c2w": np.array(c2w, copy=True),
             "r_query_mid": r_query["mid"].copy(),
             "r_query_fine": r_query["fine"].copy(),
-            "exposure_feat": np.asarray(exposure_feat).copy(),
+            "exposure_feat": np.array(exposure_feat, copy=True),
             "color_t": frame.color_t(dev),
             "depth_t": frame.depth_t(dev),
             "rqm_t": torch.as_tensor(r_query["mid"], device=dev),
             "rqf_t": torch.as_tensor(r_query["fine"], device=dev),
             "pool_t": torch.as_tensor(pj, device=dev),
             "pool_len": int(max(pool.size, 1)),
-        })
-        return True
+        }

@@ -27,6 +27,17 @@ def get_rays_from_uv(i, j, c2w, fx, fy, cx, cy):
     return rays_o, rays_d
 
 
+def get_rays(H: int, W: int, fx, fy, cx, cy, c2w, device=None):
+    """Full-image ray grid: (rays_o, rays_d), each (H, W, 3)."""
+    c2w = torch.as_tensor(c2w, dtype=torch.float32, device=device)
+    j, i = torch.meshgrid(
+        torch.arange(H, dtype=torch.float32, device=c2w.device),
+        torch.arange(W, dtype=torch.float32, device=c2w.device),
+        indexing="ij")
+    rays_d = camera_dirs(i, j, fx, fy, cx, cy) @ c2w[:3, :3].T
+    return c2w[:3, 3].expand_as(rays_d), rays_d
+
+
 def quad2rotation(quad: torch.Tensor) -> torch.Tensor:
     """Quaternion (wxyz, any norm) -> rotation matrix, batched (N, 3, 3)."""
     quad = torch.atleast_2d(quad)

@@ -23,9 +23,7 @@ def run(argv=None):
     from .slam import PointSLAM
 
     args = C.build_arg_parser().parse_args(argv)
-    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    cfg = C.load_config(args.config, os.path.join(here,
-                                                  "configs/point_slam.yaml"))
+    cfg = C.load_config(args.config, C.default_config_path())
     cfg = C.apply_args(cfg, args)
     np.random.seed(cfg.get("seed", 1219))
     slam = PointSLAM(cfg, args, device=args.device)

@@ -6,14 +6,21 @@ keyframes are registered, checkpoints and the final point cloud are
 written, and the trajectory is evaluated (ATE).  ``sync_method`` loose /
 free defer mapping by a fixed tracker lag, as the reference does.
 
+Every ``vis_freq``-th tracked and mapped frame renders the rendered-vs-
+input panels (``utils.visualizer``; ``save_rendered_image`` also writes the
+fine level's colour), logged as ``vis`` events.  ``resume`` continues from
+the output's latest checkpoint (``restore_from``).  After the colour
+refinement, ``mapping.end_correction`` registers the trajectory tail
+against the early map (``tools.end_correction``), logged as an
+``end_correction`` event.
+
 With ``mesh`` in the config (``--mesh dp2``; ``parallel.mesh``) the
 tracker and mapper run their dp-sharded programs; every rank runs this
 loop on the same data and seeds and holds the same state, and only rank 0
 writes outputs and prints.
 
-Not ported (raise NotImplementedError when enabled): rendered
-visualisations (the tracking/mapping ``vis_freq`` panels), telemetry
-(``wandb``), resume, end-of-sequence correction.
+Not ported (raises NotImplementedError when enabled): telemetry
+(``wandb``).
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ import time
 import numpy as np
 import torch
 
+from .convert import params_from_numpy
 from .device import resolve_device
 from .mapper import Mapper
 from .models import decoder as Dec
@@ -31,22 +39,8 @@ from .parallel.mesh import local_device, parse_mesh_spec
 from .state import NeuralPointCloud
 from .tracker import Tracker
 from .utils.datasets import Prefetcher, get_dataset
-from .utils.logger import Logger
-
-
-class _Visualizer:
-    """Stand-in for the reference's panel renderer: fires on the same frames
-    and raises, since full-frame visualisation is not ported."""
-
-    def __init__(self, freq: int):
-        self.freq = freq
-
-    def vis(self, idx: int):
-        if idx % self.freq == 0:
-            raise NotImplementedError(
-                "rendered visualisation (utils/visualizer.py) is not ported "
-                "yet; set tracking.vis_freq / mapping.vis_freq past the last "
-                "frame.  See ROADMAP.md")
+from .utils.logger import Logger, latest_checkpoint, load_checkpoint
+from .utils.visualizer import Visualizer
 
 
 class PointSLAM:
@@ -65,13 +59,9 @@ class PointSLAM:
                 torch.cuda.set_device(self.device)
             self.mesh = parse_mesh_spec(cfg["mesh"], self.device.type)
         self.is_main = self.mesh is None or self.mesh.is_main
-        for key, what in (("resume", "resume"), ("wandb", "telemetry")):
-            if cfg.get(key):
-                raise NotImplementedError(f"{what} is not ported yet; see "
-                                          "ROADMAP.md")
-        if cfg["mapping"].get("end_correction"):
-            raise NotImplementedError("end_correction is not ported yet; "
-                                      "see ROADMAP.md")
+        if cfg.get("wandb"):
+            raise NotImplementedError("telemetry is not ported yet; see "
+                                      "ROADMAP.md")
         self.verbose = cfg.get("verbose", True) and self.is_main
         self.output = cfg["data"]["output"]
         self.ckptsdir = os.path.join(self.output, "ckpts")
@@ -102,8 +92,16 @@ class PointSLAM:
         self.tracker = Tracker(cfg, self)
         self.mapper = Mapper(cfg, self)
         self.logger = Logger(cfg, self)
-        self.tracker_vis = _Visualizer(cfg["tracking"]["vis_freq"])
-        self.mapper_vis = _Visualizer(cfg["mapping"]["vis_freq"])
+        self.tracker_vis = Visualizer(
+            cfg["tracking"]["vis_freq"],
+            os.path.join(self.output, "tracking_vis"), self,
+            self.tracker.rcfg, self.verbose, enabled=self.is_main)
+        self.mapper_vis = Visualizer(
+            cfg["mapping"]["vis_freq"],
+            os.path.join(self.output, "mapping_vis"), self,
+            self.mapper.rcfg, self.verbose, enabled=self.is_main)
+        self.save_rendered_image = cfg["mapping"].get("save_rendered_image",
+                                                      False)
         self.every_frame = cfg["mapping"]["every_frame"]
         sync = cfg.get("sync_method", "strict")
         self._map_lag = {"strict": 0, "loose": self.every_frame,
@@ -155,6 +153,70 @@ class PointSLAM:
         f.write(json.dumps(record) + "\n")
         f.flush()
 
+    def _log_vis(self, mf, what: str, records):
+        for rec in records:
+            self._log_metrics(mf, {"event": "vis", "what": what, **rec})
+
+    def rng_states(self) -> dict:
+        """The state of every random stream the run draws from (the point
+        insertion's, the tracker's and the mapper's generators and the
+        mapper's numpy generator), for the checkpoint."""
+        return {"npc": self.npc.gen.get_state().numpy(),
+                "tracker": self.tracker.gen.get_state().numpy(),
+                "mapper": self.mapper.gen.get_state().numpy(),
+                "mapper_np": self.mapper.rng.bit_generator.state}
+
+    def set_rng_states(self, states: dict):
+        for gen, key in ((self.npc.gen, "npc"), (self.tracker.gen, "tracker"),
+                         (self.mapper.gen, "mapper")):
+            gen.set_state(torch.as_tensor(np.asarray(states[key], np.uint8)))
+        self.mapper.rng.bit_generator.state = states["mapper_np"]
+
+    def restore_from(self, path: str) -> int:
+        """Resume a live run from a Logger checkpoint (this package's or
+        hpslam_tpu's): the point levels, the input cloud, the decoder
+        parameters, the exposure latent, the pose lists, the keyframe
+        registry (images and device tensors re-read from the reader, as the
+        Logger strips them), the mapper's last pose and the random streams'
+        states.  A checkpoint without stream states (hpslam_tpu's) resumes
+        with the streams as this run seeded them.  Returns the checkpointed
+        frame index; run() continues at the next."""
+        state = load_checkpoint(path)
+        for name, lv in state["levels"].items():
+            self.npc.restore_level(name, lv["pos"], lv["normal"], lv["geo"],
+                                   lv["col"], int(lv.get("capacity", 0)))
+        self.npc.restore_input(state["input_pos"], state["input_rgb"])
+        self.params = params_from_numpy(state["decoder_params"], self.device)
+        self.exposure_feat = np.asarray(state["exposure_feat"], np.float32)
+        idx = int(state["idx"])
+        n = min(len(state["estimate_c2w_list"]), self.n_img)
+        self.estimate_c2w_list[:n] = state["estimate_c2w_list"][:n]
+        self.gt_c2w_list[:n] = state["gt_c2w_list"][:n]
+        m = self.mapper
+        m.keyframe_list = [int(i) for i in state["keyframe_list"]]
+        m.selected_keyframes = dict(state.get("selected_keyframes") or {})
+        m.keyframe_dict = []
+        for kf in state["keyframe_dict"]:
+            fr = self.frame_reader[int(kf["idx"])]
+            _r_add, r_query = self.tracker.prepare_radii(fr.color)
+            m.keyframe_dict.append(m.keyframe_entry(
+                int(kf["idx"]), fr, np.asarray(kf["est_c2w"], np.float32),
+                np.asarray(kf["gt_c2w"], np.float32), r_query,
+                kf["exposure_feat"]))
+        m.prev_c2w = np.asarray(state.get(
+            "prev_c2w", state["estimate_c2w_list"][idx]), np.float32)
+        if "rng" in state:
+            self.set_rng_states(state["rng"])
+        elif self.is_main:
+            print(f"{path} holds no random-stream states (an hpslam_tpu "
+                  "checkpoint): the resumed run draws from fresh streams",
+                  flush=True)
+        if self.verbose:
+            print(f"Resumed from {path} at frame {idx} (pts "
+                  f"{self.npc.pts_num()}, {len(m.keyframe_dict)} keyframes)",
+                  flush=True)
+        return idx
+
     def _map_frame(self, mf, idx: int, frame, c2w, color_refine=False):
         t0 = time.perf_counter()
         self.params, self.exposure_feat, info = self.mapper.map(
@@ -176,7 +238,10 @@ class PointSLAM:
             "color_loss": info["color_loss_last"],
             "iters": info["n_joint_iters"]})
         if not (self.cfg["mapping"]["no_vis_on_first_frame"] and idx == 0):
-            self.mapper_vis.vis(idx)
+            self._log_vis(mf, "mapping", self.mapper_vis.vis(
+                idx, info["n_joint_iters"] - 1, frame.depth, frame.color, c2w,
+                self.npc, self.params, info["r_query"], self.exposure_feat,
+                save_rendered_image=self.save_rendered_image))
         self.mapper.maybe_register_keyframe(
             idx, frame, c2w, self.gt_c2w_list[idx], info["r_query"],
             self.exposure_feat, self.n_img)
@@ -200,10 +265,18 @@ class PointSLAM:
         (ATE results, summary)."""
         n = self.n_img
         track_times, map_times = [], []
-        prefetcher = Prefetcher(self.frame_reader)
+        start = 0
+        if self.cfg.get("resume"):
+            ck = latest_checkpoint(self.output)
+            if ck is not None:
+                start = self.restore_from(ck) + 1
+            elif self.verbose:
+                print("resume requested but no checkpoint found; starting "
+                      "fresh", flush=True)
+        prefetcher = Prefetcher(self.frame_reader, start=start)
         try:
             with open(self.metrics_path, "a") as mf:
-                for idx, frame in enumerate(prefetcher):
+                for idx, frame in enumerate(prefetcher, start=start):
                     self._step(mf, idx, frame, n, track_times, map_times)
                 if self.cfg["mapping"]["color_refine"]:
                     frame = self.frame_reader[n - 1]
@@ -211,6 +284,12 @@ class PointSLAM:
                         self._map_frame(mf, n - 1, frame,
                                         self.estimate_c2w_list[n - 1],
                                         color_refine=True)
+                if self.cfg["mapping"].get("end_correction"):
+                    # a failure of the native library raises; a gate's
+                    # rejection is a normal "not applied"
+                    from .tools.end_correction import apply_end_correction
+                    self._log_metrics(mf, {"event": "end_correction",
+                                           **apply_end_correction(self)})
                 from .tools.eval_ate import evaluate_trajectory
                 results = evaluate_trajectory(
                     self.gt_c2w_list, self.estimate_c2w_list, n - 1,
@@ -262,7 +341,9 @@ class PointSLAM:
                 "loss": tinfo.get("loss_best"),
                 "quad_err": tinfo.get("cam_error_quad"),
                 "pos_err": tinfo.get("cam_error_pos")})
-            self.tracker_vis.vis(idx)
+            self._log_vis(mf, "tracking", self.tracker_vis.vis(
+                idx, self.tracker.iters - 1, frame.depth, frame.color, c2w,
+                self.npc, self.params, tinfo["r_query"], self.exposure_feat))
         if idx % self.every_frame == 0:
             self._pending_maps.append(idx)
             self._frame_buf[idx] = frame

@@ -137,6 +137,30 @@ class NeuralPointCloud:
             self._index_dirty[level] = False
         return self._tile_index[level]
 
+    def restore_level(self, level: str, pos, normal, geo, col,
+                      capacity: int = 0):
+        """Load a checkpointed level (host arrays, n rows) into a fresh
+        store: the capacity the checkpoint names, else the next power of
+        two with growth headroom (ensure_capacity of n + GROWTH_HEADROOM);
+        rows [0:n] set, the index marked dirty."""
+        n = int(pos.shape[0])
+        self.levels[level] = make_level(
+            capacity or self.levels[level].capacity, self.c_dim, self.device)
+        if not capacity:
+            self.ensure_capacity(level, n + self.GROWTH_HEADROOM)
+        lv = self.levels[level]
+        for name, a in (("pos", pos), ("normal", normal), ("geo", geo),
+                        ("col", col)):
+            getattr(lv, name)[:n] = torch.as_tensor(
+                np.asarray(a, np.float32), device=self.device)
+        lv.count = n
+        self._index_dirty[level] = True
+
+    def restore_input(self, pos, rgb):
+        """Load the checkpointed raw input cloud (host lists)."""
+        self._input_pos = np.asarray(pos, np.float32).reshape(-1, 3).tolist()
+        self._input_rgb = np.asarray(rgb, np.float32).reshape(-1, 3).tolist()
+
     def pts_num(self) -> Dict[str, int]:
         return {k: int(v.count) for k, v in self.levels.items()}
 

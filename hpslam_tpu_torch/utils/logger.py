@@ -1,5 +1,9 @@
 """Checkpointing (port of hpslam_tpu/utils/logger.py): one pickle per
-checkpoint of numpy-converted state, in the reference's layout."""
+checkpoint of numpy-converted state, in the reference's layout, so that
+either package reads the other's files.  The port adds what a resume needs
+to continue the run as if uninterrupted: each level's capacity, the
+mapper's last pose (``prev_c2w``) and the state of every random stream the
+run draws from (``rng``, from ``PointSLAM.rng_states``)."""
 from __future__ import annotations
 
 import os
@@ -35,6 +39,7 @@ class Logger:
             levels[name] = {k: getattr(lv, k)[:n].cpu().numpy()
                             for k in ("pos", "normal", "geo", "col")}
             levels[name]["count"] = n
+            levels[name]["capacity"] = lv.capacity
         kf_dict = []
         for kf in keyframe_dict:
             kf_dict.append({
@@ -58,6 +63,10 @@ class Logger:
             "selected_keyframes": selected_keyframes,
             "idx": idx,
         }
+        if self.slam.mapper.prev_c2w is not None:
+            state["prev_c2w"] = np.asarray(self.slam.mapper.prev_c2w,
+                                           np.float32)
+        state["rng"] = self.slam.rng_states()
         with open(path, "wb") as f:
             pickle.dump(state, f, protocol=4)
         if self.verbose:
@@ -66,7 +75,8 @@ class Logger:
 
 
 def load_checkpoint(path: str) -> dict:
-    """Load a checkpoint this program wrote (pickle: trusted files only)."""
+    """Load a checkpoint that this package's or hpslam_tpu's Logger wrote
+    (pickle: trusted files only; a JAX checkpoint holds numpy arrays)."""
     with open(path, "rb") as f:
         return pickle.load(f)
 

@@ -121,9 +121,14 @@ def test_sample_near_pcl_z_and_uniform_z(rng):
         np.asarray(jR.S.uniform_z_vals(n, 5, 0.3, 4.0)), rtol=1e-6)
 
 
-def _fit_corner_feats(rng, cfg, params, steps=80):
-    """Fit features on a tiny 24x32 view so the map is informative (as
-    test_engines.py: 80 Adam steps at lr 0.05, exact neighbours)."""
+def _fit_corner_feats(rng, cfg, params, steps=400,
+                      stages=("geometry_mid", "geometry_fine")):
+    """Fit features on a tiny 24x32 view so the map is informative: Adam at
+    lr 0.05, exact neighbours, the depth loss of every geometry decoder the
+    tracker reads (its 'color_mid' stage decodes through geo_mid, its
+    'color_fine' stage through geo_fine).  test_engines.py fits geo_fine
+    alone for 80 steps, which leaves the mid stage's loss flat in the pose
+    and its fine-stage basin shallow."""
     pos, count, geo, col = corner_level(rng)
     H, W, fx, fy, cx, cy = 24, 32, 20.0, 20.0, 15.5, 11.5
     jj, ii = np.mgrid[0:H, 0:W]
@@ -144,10 +149,12 @@ def _fit_corner_feats(rng, cfg, params, steps=80):
                    pos_t, count, k=8)      # rays are fixed: search once
     for _ in range(steps):
         f = tOpt.tree_map(lambda t: t.detach().requires_grad_(), feats)
-        d, _, _, m = tR.render_rays(params, cfg, rcfg, "geometry_fine", ro,
-                                    rd, dg, pos_t, count, f["g"], f["c"], rq,
-                                    knn_cache=cache)
-        loss = torch.sum(torch.abs(dg - d) * m)
+        loss = 0.0
+        for stage in stages:
+            d, _, _, m = tR.render_rays(params, cfg, rcfg, stage, ro, rd, dg,
+                                        pos_t, count, f["g"], f["c"], rq,
+                                        knn_cache=cache)
+            loss = loss + torch.sum(torch.abs(dg - d) * m)
         g = torch.autograd.grad(loss, [f["g"], f["c"]], allow_unused=True)
         feats, st = tOpt.update({"g": g[0], "c": g[1]}, st, feats, 0.05)
     idx = tK.build_tiles(pos_t, count)
@@ -156,6 +163,14 @@ def _fit_corner_feats(rng, cfg, params, steps=80):
 
 
 def test_track_frame_improves_pose(rng):
+    """The depth-only loss is informative only while the rays' samples
+    ([0.98, 1.02] x the observed depth) straddle the fitted surface: at
+    2 m the band is +-4 cm, and a step of the Adam optimiser moves each
+    coordinate by about the learning rate.  So the start lies inside the
+    band (4.2 cm off) and lr is 0.002.  With test_engines.py's 7.1 cm start
+    and lr 0.01 both this tracker and the reference's end 3-16 cm off on
+    most pixel draws, a random walk of 30 steps (measured on the CPU on
+    six draws each from identical features)."""
     cfg = t_cfg(small_cfg())
     params = convert.params_from_numpy(jax.tree.map(
         np.asarray, jDec.init_nicer(jax.random.PRNGKey(0), small_cfg())))
@@ -164,13 +179,13 @@ def test_track_frame_improves_pose(rng):
     color = torch.full((H, W, 3), 0.5)
     rqm = torch.full((H, W), 0.4)
     pool = torch.arange(H * W)
-    cam_init = torch.tensor([1, 0, 0, 0, 0.05, -0.03, 0.04])
+    cam_init = torch.tensor([1, 0, 0, 0, 0.025, -0.015, 0.02])
     best_cam, best_loss, losses, _ = tT.track_frame(
         params, cfg, tR.RenderConfig(sample_near_pcl=False), cam_init,
         torch.Generator().manual_seed(2), color, torch.tensor(depth), rqm,
         rqm, pool, H * W, level, idx, level, idx, torch.zeros(8),
         pixels=200, iters_mid=15, iters_fine=15, W=W, fx=fx, fy=fy, cx=cx,
-        cy=cy, cam_lr=0.01, separate_lr=False, use_exposure=False,
+        cy=cy, cam_lr=0.002, separate_lr=False, use_exposure=False,
         w_color=0.5, use_color=False, handle_dynamic=True)
     best_cam = best_cam.numpy()
     assert np.isfinite(best_cam).all()

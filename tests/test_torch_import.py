@@ -88,6 +88,39 @@ def test_cv2_only_inside_the_jpeg_decode():
     assert out.returncode == 0, out.stderr[-2000:]
 
 
+def test_no_plotting_or_imaging_library():
+    """The card's machine has neither matplotlib nor PIL: no port module
+    (nor chip_smoke.py) imports them at module level (eval_ate's optional
+    plot imports matplotlib at the call), the visualiser's, meshing and
+    native modules are among those imported, and importing every module
+    leaves both out."""
+    mods = _port_modules()
+    assert {"hpslam_tpu_torch.utils.visualizer",
+            "hpslam_tpu_torch.utils.panels", "hpslam_tpu_torch.native",
+            "hpslam_tpu_torch.tools.get_mesh_tsdf_fusion",
+            "hpslam_tpu_torch.tools.end_correction",
+            "hpslam_tpu_torch.tools.eval_recon",
+            "hpslam_tpu_torch.tools.cull_mesh",
+            "hpslam_tpu_torch.tools.make_synth_gt_mesh"} <= set(mods)
+    pat = re.compile(r"^(import|from)\s+(matplotlib|PIL)\b", re.M)
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, fs in os.walk(PKG):
+        files += [os.path.join(dirpath, f) for f in fs if f.endswith(".py")]
+    for path in files:
+        with open(path) as f:
+            assert not pat.search(f.read()), path
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('matplotlib', 'PIL')]\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+
+
 def test_entry_points_refuse_cpu_drift(monkeypatch):
     from hpslam_tpu_torch.device import resolve_device
     from hpslam_tpu_torch.ops import fused_mlp, knn

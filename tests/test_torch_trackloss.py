@@ -226,9 +226,17 @@ def _map_scan_inputs(rng, cfg):
 def test_map_scan_fused_trunks_match_maploss_path(rng, expo):
     """The union map_scan on the fused trunks + plain render_union
     (fused_composite off) against the mapping-loss path (fused_composite
-    on): the same loss in another order of operations.  Loss curves within
-    rtol 1e-3 / atol 1e-4 and features within atol 1e-4 after 12 Adam
-    iterations (f32 rounding, carried through Adam)."""
+    on): the same loss in another order of operations.
+
+    After one Adam iteration the features and the colour decoder agree
+    within atol 1e-4, and the loss curves of 12 iterations within rtol
+    1e-3 / atol 1e-4.  After 12 iterations f32 no longer fixes the
+    features to 1e-4: Adam's step is about the learning rate wherever a
+    gradient is near zero, so rounding there grows to ~3e-3 against a
+    float64 run of the same path (both f32 paths alike).  So the 12th
+    iterate of each f32 path is held against a float64 run of the plain
+    path, and the mapping-loss path may stray from it at most 1.5x as far
+    as the plain f32 path does (f32 rounding, carried through Adam)."""
     base = tDec.ModelConfig(**dataclasses.asdict(small_cfg(
         encode_exposure=expo)))
     rcfg = tR.RenderConfig(sample_near_pcl=False, near_end_surface=0.96,
@@ -236,26 +244,37 @@ def test_map_scan_fused_trunks_match_maploss_path(rng, expo):
     params = tDec.init_nicer(torch.Generator().manual_seed(0), base, "cpu")
     depths, cp, packed, u, feat, F = _map_scan_inputs(rng, base)
     expo_stack = torch.tensor(rng.normal(0, 0.5, (F, 8)).astype(np.float32))
-    n_it = 12
-    lr = np.tile(np.array([[0.005, 0.03, 0.02, 0.0]], np.float32), (n_it, 1))
-    out = []
-    for composite in (True, False):
+
+    def run(composite, n_it, dtype=torch.float32):
+        cast = (lambda t: t.to(dtype) if torch.is_tensor(t)
+                and t.is_floating_point() else t)
+        pr = tOpt.tree_map(cast, params)
         mcfg = dataclasses.replace(base, fused_mlp=True,
                                    fused_composite=composite)
-        op = {"feat": feat.clone(),
-              "dec": tOpt.tree_map(torch.clone, params["col_fine"])}
+        op = {"feat": cast(feat.clone()),
+              "dec": tOpt.tree_map(torch.clone, pr["col_fine"])}
         if expo:
-            op["expo_feat"] = expo_stack[F - 1].clone()
+            op["expo_feat"] = cast(expo_stack[F - 1].clone())
+        lr = np.tile(np.array([[0.005, 0.03, 0.02, 0.0]], np.float32),
+                     (n_it, 1))
         op, _ost, losses = tM.map_scan(
-            params, mcfg, rcfg, op, tOpt.init(op),
-            torch.Generator().manual_seed(1), depths, cp, packed, u,
-            expo_stack, lr, F, "fine", 256, 4, expo, True, 0.1)
-        out.append((losses.numpy(), op))
-    (l_ref, op_ref), (l_new, op_new) = out
+            pr, mcfg, rcfg, op, tOpt.init(op),
+            torch.Generator().manual_seed(1), cast(depths), cp,
+            cast(packed), u, cast(expo_stack), lr, F, "fine", 256, 4, expo,
+            True, 0.1)
+        leaves = [op["feat"]] + tFM.flatten_core(op["dec"]["core"])
+        return losses.double().numpy(), [t.double().numpy() for t in leaves]
+
+    _, one_ref = run(True, 1)
+    _, one_new = run(False, 1)
+    for a, b in zip(one_new, one_ref):
+        np.testing.assert_allclose(a, b, atol=1e-4)
+    l_ref, op_ref = run(True, 12)
+    l_new, op_new = run(False, 12)
     assert np.isfinite(l_ref).all() and (l_ref[4:, 1] > 0).all()
     np.testing.assert_allclose(l_new, l_ref, rtol=1e-3, atol=1e-4)
-    np.testing.assert_allclose(op_new["feat"].numpy(),
-                               op_ref["feat"].numpy(), atol=1e-4)
-    for a, b in zip(tFM.flatten_core(op_new["dec"]["core"]),
-                    tFM.flatten_core(op_ref["dec"]["core"])):
-        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-4)
+    _, op_64 = run(False, 12, torch.float64)
+    err_ref = max(np.abs(a - b).max() for a, b in zip(op_ref, op_64))
+    err_new = max(np.abs(a - b).max() for a, b in zip(op_new, op_64))
+    assert np.isfinite(err_ref) and err_ref <= 1.5 * err_new + 1e-6, (
+        err_ref, err_new)
