@@ -31,10 +31,12 @@ Phases, each printed as one JSON line when it starts and when it ends:
            same)
   trackloss  fused tracker-render kernel pair against trackloss_plain
            (autograd) at the tracker's 2000 rays: sigmoid tail, exposure
-           affine, exp weighting, and a ragged 2001 rays; #8-9 twice,
-           bitwise; kernel / plain times, #8's and #9's device time per
-           pass (under torch.profiler), blocks per SM of the tile passes
-           and the peak device memory of one #8 launch
+           affine, exp weighting, a ragged 2001 rays, and bf16 features
+           (model.mm_bf16; the same bf16 rows for both, the f32
+           tolerances); #8-9 twice, bitwise; kernel / plain times, #8's
+           and #9's device time per pass (under torch.profiler) on f32 and
+           on bf16 features, blocks per SM of the tile passes and the peak
+           device memory of one #8 launch
   composite  fused-composite kernel #6 through its autograd wrapper
            (nicer_fused_composite) against composite_plain under autograd,
            and kernel #7 (fused_comp_bwd) against the composition it
@@ -68,6 +70,21 @@ Phases, each printed as one JSON line when it starts and when it ends:
   slam_ba  the slam run with mapping.BA on and keyframes and mappings
            every 2nd frame, so that the last mapping bundle-adjusts: the
            per-sample mapper in tracker mode on the fused trunks (#4-5)
+  slam_bf16  the slam run with model.mm_bf16 and tracking.fused_loss:
+           the tracker's bf16 feature table into #8-9 (their bf16
+           launches counted apart), union mapping on #3
+  slam_geo the slam run with fix_geo_decoder_mid / _fine off: the union
+           mapping path trains both geometry decoders on the plain trunks
+           (no decoder kernel); both decoders must have changed
+  slam_scannet  configs/ScanNet/scene0059.yaml on a ScanNet tree the smoke
+           writes (8 frames of the synthetic room at the config's 480x640
+           intrinsics, 2.9 cm apart, colour as baseline JPEG through the
+           port's encoder),
+           iterations cut (SCANNET_CUTS): tools/preflight.py first (exit
+           0), the decoded first frame, the reader's ms per frame and the
+           JPEG decode's ms per file; the plain tracker, union mapping with
+           exposure on #3, end correction (its event printed); the
+           per-iteration costs tools/preflight.py's estimate scales
   slam_vis the slam run with tracking and mapping panels at frame 5
            (vis_freq 5), the fine level's rendered image and a checkpoint
            at frame 5: the panels and the image decoded to their shapes,
@@ -83,6 +100,9 @@ Phases, each printed as one JSON line when it starts and when it ends:
            frame rendered, voxel 5/512 m), the synthetic room's GT mesh
            culled by the run's poses, accuracy / completion / F-score
            (accuracy under 5 cm); the render's and the fusion's seconds
+  telemetry  slam_vis's plots/summary.png (the run summary that every run
+           ends with) decodes at its canvas size with line pixels in all
+           four panels
   loop     configs/Synthetic/synth_loop.yaml, all 60 frames, iterations
            cut (LOOP_CUTS): the end correction is applied and lowers the
            ATE of the same trajectory (its last checkpoint) evaluated
@@ -94,7 +114,8 @@ Phases, each printed as one JSON line when it starts and when it ends:
            config and seed with panels, so slam does not run a third time)
   kernels  one JSON line describing every ported kernel, with its bound
            at the f32 rate (bound_ms) and with the operations on the
-           tensor cores at f32 accuracy (tc_bound_ms, 3xTF32)
+           tensor cores at f32 accuracy (tc_bound_ms, 3xTF32), and #8's and
+           #9's time on bf16 features (bf16_ms)
   band     (only when named in --phases) synth_tpu.yaml and
            synth_noisy.yaml for all 30 frames at seeds 0, 1, 2 on the slam
            and slam_fused paths: each ATE beside the reference's band
@@ -125,9 +146,10 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ["device", "build", "topk", "maploss", "trunks", "trackloss",
           "composite", "slam", "slam_fused", "slam_mesh", "slam_tum",
-          "slam_ba", "slam_vis", "resume", "mesh", "loop", "repeat",
-          "kernels"]
-SLAM_PHASES = ["slam", "slam_fused", "slam_mesh", "slam_tum", "slam_ba"]
+          "slam_ba", "slam_bf16", "slam_geo", "slam_scannet", "slam_vis",
+          "resume", "mesh", "telemetry", "loop", "repeat", "kernels"]
+SLAM_PHASES = ["slam", "slam_fused", "slam_mesh", "slam_tum", "slam_ba",
+               "slam_bf16", "slam_geo", "slam_scannet"]
 
 # H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -243,7 +265,8 @@ def ptxas_kernels(log: str) -> dict:
 
 def run_build(out_dir: str) -> dict:
     """Every kernel source (one nvcc each, all at once) and, beside them,
-    the native C++ runtime that end correction and meshing use."""
+    the native C++ runtime that end correction and meshing use and the
+    port's JPEG codec."""
     import threading
 
     from hpslam_tpu_torch import _cuda
@@ -258,6 +281,8 @@ def run_build(out_dir: str) -> dict:
         t0 = time.perf_counter()
         try:
             nat["library"] = os.path.basename(native.build())
+            nat["jpeg_library"] = os.path.basename(native.build(
+                native.JPEG_SOURCE, "hpjpeg"))
         except BaseException as e:      # re-raised below
             nat["error"] = e
         nat["seconds"] = time.perf_counter() - t0
@@ -898,7 +923,8 @@ def kernel_launches(fn, iters: int = 10, flush=None) -> dict:
         if us is None:
             us = getattr(ev, "self_cuda_time_total", 0)
         if us and us > 0:
-            name = ev.key.split("(")[0]
+            # "void tl_fwd_tiles<float>(...)" -> "tl_fwd_tiles<float>"
+            name = ev.key.split("(")[0].removeprefix("void ")
             ms, n = out.get(name, (0.0, 0))
             out[name] = (ms + us / 1e3, n + ev.count)
     return out
@@ -1061,12 +1087,15 @@ def check_drays(I, static, k, p):
 def run_trackloss(results: dict) -> dict:
     """Kernels #8-9 under autograd (the wrapper) against trackloss_plain
     differentiated by autograd: the SLAM run's sigmoid tail with distance
-    weights, the exposure affine, exp weighting, and a ragged 2001 rays
-    (10005 samples, not a multiple of #9's 64-sample tile).  Two runs of
-    the wrapper must agree bit for bit.  The bare launcher is timed, #8's
-    and #9's device time split by pass, the occupancy calculator's blocks
-    per SM of the tile passes and the device memory of one #8 launch
-    reported."""
+    weights, the exposure affine, exp weighting, a ragged 2001 rays
+    (10005 samples, not a multiple of #9's 64-sample tile), and the SLAM
+    run's case on bfloat16 features (model.mm_bf16: the same bf16 rows for
+    the kernel and the plain version, which upcast each element exactly,
+    so the f32 tolerances hold).  Two runs of the wrapper must agree bit
+    for bit.  The bare launcher is timed, #8's and #9's device time split
+    by pass (the f32 and the bf16 variant of the SLAM run's case, in this
+    call), the occupancy calculator's blocks per SM of the tile passes and
+    the device memory of one #8 launch reported."""
     import torch
     from hpslam_tpu_torch import _cuda
     from hpslam_tpu_torch.ops import fused_mlp as FM
@@ -1074,10 +1103,15 @@ def run_trackloss(results: dict) -> dict:
     inputs = {n: trackloss_inputs(torch, dev, n=n) for n in (2000, 2001)}
     cases = []
     worst = {"fwd": 0.0, "bwd": 0.0}
-    main = None
-    for use_aff, wmode, n in ((False, 0, 2000), (True, 0, 2000),
-                              (False, 1, 2000), (False, 0, 2001)):
+    main = bf16_case = None
+    for use_aff, wmode, n, bf16 in ((False, 0, 2000, False),
+                                    (True, 0, 2000, False),
+                                    (False, 1, 2000, False),
+                                    (False, 0, 2001, False),
+                                    (False, 0, 2000, True)):
         I = inputs[n]
+        if bf16:
+            I = dict(I, cfeat=I["cfeat"].to(torch.bfloat16))
         mcfg, S, K = I["mcfg"], I["S"], I["K"]
         C = mcfg.c_dim
         static = (mcfg.n_blocks, mcfg.skip, S, K, C, 0.1, wmode, use_aff,
@@ -1141,21 +1175,27 @@ def run_trackloss(results: dict) -> dict:
                  sum(t.numel() for t in I["col"]) + I["Bs"][1].numel()]
         b_f = bound_ms(*trackloss_work(mcfg, n, S, K, False, *numel))
         b_b = bound_ms(*trackloss_work(mcfg, n, S, K, True, *numel))
-        case = {"affine": use_aff, "wmode": wmode, "n": n, "fwd_ms": t_f,
+        case = {"affine": use_aff, "wmode": wmode, "n": n,
+                "cfeat": "bfloat16" if bf16 else "float32", "fwd_ms": t_f,
                 "fwd_plain_ms": tp_f, "fwd_bound_ms": b_f[0], "bwd_ms": t_b,
                 "bwd_plain_ms": tp_b, "bwd_bound_ms": b_b[0],
                 "bound_by": b_b[1], "bitwise_repeat": True,
                 "drays_vs_float64": stats.pop("drays_f64"),
                 "rel_fro_max": max(stats.values())}
-        if main is None:
+        if main is None or bf16:
             case["fwd_pass_ms"] = {
                 k_: v for k_, v in kernel_ms(kernel8).items()
                 if k_.startswith("tl_")}
             case["bwd_pass_ms"] = {
                 k_: v for k_, v in kernel_ms(kernel9).items()
                 if k_.startswith("tl_")}
+            case["fwd_device_ms"] = sum(case["fwd_pass_ms"].values())
+            case["bwd_device_ms"] = sum(case["bwd_pass_ms"].values())
+        if main is None:
             case["fwd_memory"] = launch_memory(kernel8)
             main = (case, b_f, b_b)
+        if bf16:
+            bf16_case = case
         cases.append(case)
     case, b_f, b_b = main
     passes = case["bwd_pass_ms"]
@@ -1163,14 +1203,21 @@ def run_trackloss(results: dict) -> dict:
         "max_abs_err": worst["fwd"], "ms": case["fwd_ms"],
         "plain_ms": case["fwd_plain_ms"], "bound_ms": b_f[0],
         "bound_by": b_f[1], "tc_bound_ms": b_f[2],
-        "library_ms": None, "pass_ms": case["fwd_pass_ms"]}
+        "library_ms": None, "pass_ms": case["fwd_pass_ms"],
+        "bf16_ms": bf16_case["fwd_ms"],
+        "device_ms": case["fwd_device_ms"],
+        "bf16_device_ms": bf16_case["fwd_device_ms"]}
     results["trackloss_bwd"] = {
         "max_abs_err": worst["bwd"], "ms": case["bwd_ms"],
         "plain_ms": case["bwd_plain_ms"], "bound_ms": b_b[0],
         "bound_by": b_b[1], "tc_bound_ms": b_b[2],
         "library_ms": None, "pass_ms": passes,
-        "without_recompute_ms": passes.get("tl_bwd_tiles", 0.0)
-        + passes.get("tl_drays", 0.0)}
+        "bf16_ms": bf16_case["bwd_ms"],
+        "device_ms": case["bwd_device_ms"],
+        "bf16_device_ms": bf16_case["bwd_device_ms"],
+        "without_recompute_ms": sum(
+            v for k_, v in passes.items()
+            if k_.startswith(("tl_bwd_tiles", "tl_drays")))}
     I = inputs[2000]
     C, emb_g, hid_g, emb_c, hid_c = tile_widths(I)
     lib = _cuda.lib("trackloss")
@@ -1498,7 +1545,20 @@ PROFILE_GROUPS = [
 PROFILE_KERNELS = {
     "slam": (("topk_rows_lists",), ("topk_rows_kpass",)),
     "slam_fused": (("tl_fwd_tiles", "tl_rays", "tl_bwd_tiles"),
-                   ("tl_fwd_samples",)),
+                   ("tl_fwd_samples", "tl_fwd_tiles<__nv_bfloat16")),
+    # #8-9's bf16-feature variant on the tracker, #3 on the mapper
+    "slam_bf16": (("tl_fwd_tiles<__nv_bfloat16", "tl_bwd_tiles<__nv_bfloat16",
+                   "ml_bwd_tiles"),
+                  ("tl_fwd_tiles<float", "tr_fwd_tiles", "tr_bwd_tiles",
+                   "cp_fwd_tiles")),
+    # trained geometry decoders: the plain trunks, no decoder kernel
+    "slam_geo": (("topk_rows_lists",),
+                 ("ml_fwd_tiles", "ml_bwd_tiles", "tr_fwd_tiles",
+                  "tr_bwd_tiles", "tl_fwd_tiles", "tl_bwd_tiles",
+                  "cp_fwd_tiles", "cp_bwd_tiles")),
+    "slam_scannet": (("topk_rows_lists", "ml_bwd_tiles"),
+                     ("tl_fwd_tiles", "tl_bwd_tiles", "cp_fwd_tiles",
+                      "cp_bwd_tiles", "tr_bwd_tiles")),
     "slam_mesh": (("cp_fwd_tiles", "cp_rays"), ("cp_samples",)),
     "slam_tum": (("topk_rows_lists",),
                  ("ml_fwd_tiles", "ml_bwd_tiles", "tr_fwd_tiles",
@@ -1604,6 +1664,37 @@ QUALITY_REFERENCE = {"synth_quality": {"ate_cm": 1.35, "accuracy_cm": 0.96,
                                     "ate_cm_end_correction_off": 39.52}}
 FUSED = {"tracking": {"fused_loss": True},
          "model": {"fused_composite": False}}
+# slam_bf16: model.mm_bf16 (the tracker's bf16 feature table into #8-9)
+BF16 = {"model": {"mm_bf16": True}, "tracking": {"fused_loss": True}}
+# slam_geo: both geometry decoders trained on the union mapping path, on
+# the plain trunks (about twice slam's map time per frame); uncut: with
+# tracking cut to 30 iterations and mapping to 50 / 80 first / 30
+# geometry first its ATE rose to 5.87 cm (PERF.md §6)
+GEO = {"mapping": {"fix_geo_decoder_mid": False,
+                   "fix_geo_decoder_fine": False}}
+SCANNET_CFG = "configs/ScanNet/scene0059.yaml"
+SCANNET_FRAMES = 8
+# the tree's frames are the first 8 of a quarter orbit over 64 (2.9 cm and
+# 0.84 degrees a frame, the scale of ScanNet's 30 Hz handheld motion):
+# scene0059.yaml tracks with lr 0.0005, which over 30 iterations moves a
+# pose coordinate at most ~1.5 cm, and slam_tum's orbit (23 cm a frame)
+# leaves the constant-speed prediction ~4.6 cm off a frame
+SCANNET_ORBIT = 64
+# slam_scannet keeps scene0059.yaml's model width, 480x640 images (crop
+# edge 10), pixel budgets (tracking 5000, mapping 10000), window (20),
+# exposure and end correction; what it cuts, each listed in its JSON line
+SCANNET_CUTS = {
+    "frames": f"{SCANNET_FRAMES} (synthetic room rendered at the config's "
+              f"intrinsics, 1/{SCANNET_ORBIT} of a quarter orbit apart, "
+              "colour as baseline JPEG)",
+    "tracking.iters": "100 -> 30",
+    "mapping.iters": "600 -> 60",
+    "mapping.iters_first": "500 -> 150",
+    "mapping.geo_iter_first": "200 -> 40",
+}
+SCANNET_ADDITIONS = {"tracking": {"iters": 30},
+                     "mapping": {"iters": 60, "iters_first": 150,
+                                 "geo_iter_first": 40}}
 TUM_CFG = "configs/TUM_RGBD/freiburg1_desk.yaml"
 TUM_FRAMES = 8
 # slam_tum keeps freiburg1_desk.yaml's model width, 480x640 images (crop
@@ -1624,6 +1715,8 @@ TUM_ADDITIONS = {
 # the fused kernels that the per-sample paths must not reach
 _MAPLOSS = ("maploss_fwd", "maploss_bwd")
 _TRACKLOSS = ("trackloss_fwd", "trackloss_bwd")
+# #8-9's launches on bf16 features (counted again under these names)
+_TRACKLOSS_BF16 = ("trackloss_fwd_bf16", "trackloss_bwd_bf16")
 _COMPOSITE = ("composite_fwd", "composite_bwd")
 _TRUNKS = ("trunks_fwd", "trunks_bwd")
 
@@ -1638,7 +1731,8 @@ SLAM_RUNS = {
     # the fused tracker render and union mapping on the fused trunks;
     # no mapping-loss launch proves that the knob routed the mapper
     "slam_fused": (SYNTH_CFG, merged(SYNTH_CUTS, FUSED),
-                   ("topk_rows",) + _TRUNKS + _TRACKLOSS, _MAPLOSS),
+                   ("topk_rows",) + _TRUNKS + _TRACKLOSS,
+                   _MAPLOSS + _TRACKLOSS_BF16),
     # the dp-mesh path on one card: the tracker's dp branch (no fused
     # render under a mesh) and union mapping through the fused composite
     # (kernel #6, its backward on kernel #5), never the mapping loss
@@ -1666,6 +1760,22 @@ SLAM_RUNS = {
     "slam_vis": (SYNTH_CFG, merged(SYNTH_CUTS, VIS),
                  ("topk_rows", "maploss_bwd", "trunks_fwd"),
                  ("trunks_bwd",) + _TRACKLOSS + _COMPOSITE),
+    # model.mm_bf16: the tracker hands its bf16 feature rows to #8-9 (the
+    # fused render), the mapper runs the default union path on #3
+    "slam_bf16": (SYNTH_CFG, merged(SYNTH_CUTS, BF16),
+                  ("topk_rows", "maploss_bwd") + _TRACKLOSS
+                  + _TRACKLOSS_BF16, _TRUNKS + _COMPOSITE),
+    # fix_geo_decoder_* off: the union mapping path trains both geometry
+    # decoders on the plain trunks (the fused ones freeze the geometry
+    # core), so no decoder kernel runs; the tracker is the plain one
+    "slam_geo": (SYNTH_CFG, merged(SYNTH_CUTS, GEO), ("topk_rows",),
+                 _MAPLOSS + _TRUNKS + _TRACKLOSS + _COMPOSITE),
+    # scene0059.yaml on a ScanNet tree (JPEG colour through the port's
+    # decoder): the plain tracker, union mapping with exposure on #3, end
+    # correction; no render fires in 8 frames (vis_freq 100 / 40)
+    "slam_scannet": (SCANNET_CFG, SCANNET_ADDITIONS,
+                     ("topk_rows", "maploss_bwd"),
+                     _TRACKLOSS + _COMPOSITE + _TRUNKS),
     # synth_loop.yaml's 60 frames with end correction (panels at frame 50)
     "loop": (LOOP_CFG, LOOP_ADDITIONS, ("topk_rows", "maploss_bwd"),
              ("trunks_bwd",) + _TRACKLOSS + _COMPOSITE),
@@ -1790,6 +1900,106 @@ def check_tum_decode(cfg_path: str, tree: str, first: dict) -> dict:
     return out
 
 
+def write_scannet_tree(folder: str) -> dict:
+    """slam_scannet's input: the first SCANNET_FRAMES frames of the
+    synthetic room's quarter orbit in SCANNET_ORBIT frames, rendered at
+    scene0059.yaml's 480x640 intrinsics, written as a ScanNet
+    tree (color/*.jpg through the port's baseline JPEG encoder, depth/*.png
+    16-bit, pose/*.txt).  Returns the rendered first colour and depth."""
+    from hpslam_tpu_torch import config as C
+    from hpslam_tpu_torch.utils import datasets as D
+    cam = dict(C.load_config(os.path.join(HERE, SCANNET_CFG),
+                             C.default_config_path())["cam"], crop_edge=0)
+    syn = D.Synthetic({"dataset": "synthetic", "seed": 1219, "data": {},
+                       "synthetic": {"n_frames": SCANNET_ORBIT,
+                                     "radius": 1.2}, "cam": cam})
+    frames = [syn[i] for i in range(SCANNET_FRAMES)]
+    D.write_scannet_tree(folder, frames,
+                         png_depth_scale=cam["png_depth_scale"])
+    return {"color": frames[0].color, "depth": frames[0].depth}
+
+
+def check_scannet_tree(cfg_path: str, tree: str, first: dict) -> dict:
+    """preflight on the tree (must exit 0), then the run's reader (the
+    port's ScanNet reader, JPEG through its own decoder): the first frame
+    against the rendered one, cut by the crop edge (colour within the JPEG
+    loss, depth within the PNG quantisation); the reader's ms per frame
+    (decode, crop; mean over the tree) and the JPEG decode's ms per file
+    (mean over the tree's colour files)."""
+    import io
+
+    import numpy as np
+    from hpslam_tpu_torch import config as C
+    from hpslam_tpu_torch.tools import preflight as PF
+    from hpslam_tpu_torch.utils import datasets as D
+    from hpslam_tpu_torch.utils import image_io as IO
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = PF.main([cfg_path, "--input_folder", tree])
+    lines = buf.getvalue().splitlines()
+    if rc != 0:
+        raise AssertionError(f"preflight exit {rc}: {lines}")
+    cfg = C.load_config(cfg_path, C.default_config_path())
+    reader = D.get_dataset(cfg, input_folder=tree)
+    fr = reader[0]
+    e = cfg["cam"]["crop_edge"]
+    col = first["color"][e:-e, e:-e]
+    dep = first["depth"][e:-e, e:-e]
+    out = {"preflight_exit": rc, "preflight": lines,
+           "frames": len(reader), "shape": list(fr.color.shape),
+           "color_mean_abs_err": float(np.abs(fr.color - col).mean()),
+           "color_max_err": float(np.abs(fr.color - col).max()),
+           "depth_max_err_m": float(np.abs(fr.depth - dep).max())}
+    t0 = time.perf_counter()
+    for i in range(len(reader)):
+        reader[i]
+    out["read_ms_per_frame"] = 1e3 * (time.perf_counter() - t0) / len(reader)
+    t0 = time.perf_counter()
+    for path in reader.color_paths:
+        IO.read_color(path)
+    out["jpeg_decode_ms_per_file"] = (1e3 * (time.perf_counter() - t0)
+                                      / len(reader.color_paths))
+    t0 = time.perf_counter()
+    for path in reader.depth_paths:
+        IO.read_png(path)
+    out["png_decode_ms_per_file"] = (1e3 * (time.perf_counter() - t0)
+                                     / len(reader.depth_paths))
+    scale = cfg["cam"]["png_depth_scale"]
+    if not (len(reader) == SCANNET_FRAMES
+            and out["color_mean_abs_err"] <= 2.0 / 255
+            and out["depth_max_err_m"] <= 0.5 / scale + 1e-6):
+        raise AssertionError(f"ScanNet tree decode: {out}")
+    return out
+
+
+def geo_decoder_changes(cfg_path: str, state: dict) -> dict:
+    """The largest change of each geometry decoder's parameters between
+    the run's start (init_nicer from the config's seed, as PointSLAM draws
+    them) and its final checkpoint; fails unless both changed."""
+    import numpy as np
+    import torch
+    from hpslam_tpu_torch import config as C
+    from hpslam_tpu_torch.convert import params_to_numpy
+    from hpslam_tpu_torch.models import decoder as Dec
+    from hpslam_tpu_torch.ops import optim as Opt
+    cfg = C.load_config(cfg_path, C.default_config_path())
+    gen = torch.Generator(device="cuda").manual_seed(
+        int(cfg.get("seed", 1219)))
+    start = params_to_numpy(Dec.init_nicer(gen, Dec.ModelConfig.from_cfg(cfg),
+                                           torch.device("cuda")))
+    out = {}
+    for name in ("geo_mid", "geo_fine"):
+        change = Opt.tree_leaves(Opt.tree_map(
+            lambda x, y: float(np.abs(np.asarray(x) - np.asarray(y)).max()),
+            start[name], state["decoder_params"][name]))
+        out[name] = {"max_abs_change": max(change),
+                     "leaves_changed": sum(c > 0 for c in change),
+                     "leaves": len(change)}
+    if not all(v["max_abs_change"] > 0 for v in out.values()):
+        raise AssertionError(f"slam_geo: geometry decoders unchanged: {out}")
+    return out
+
+
 def run_slam(out_dir: str, name: str = "slam", profile: bool = False,
              tag: str = "", spec=None, seed=None, max_ate=ATE_MAX_M,
              keep: bool = False):
@@ -1824,6 +2034,10 @@ def run_slam(out_dir: str, name: str = "slam", profile: bool = False,
             first = write_tum_tree(os.path.join(work, "in"))
             decode = check_tum_decode(cfg_path, os.path.join(work, "in"),
                                       first)
+        elif name == "slam_scannet":
+            first = write_scannet_tree(os.path.join(work, "in"))
+            decode = check_scannet_tree(cfg_path, os.path.join(work, "in"),
+                                        first)
         with world1_group(name):
             _cuda.reset_launches()
             torch.cuda.synchronize()
@@ -1834,8 +2048,17 @@ def run_slam(out_dir: str, name: str = "slam", profile: bool = False,
             prof = (profile_run(lambda: R.run(
                 argv + ["--output", os.path.join(work, "prof")])[1], name)
                 if profile else None)
-        traj = load_checkpoint(latest_checkpoint(os.path.join(
-            work, "out")))["estimate_c2w_list"]
+        state = load_checkpoint(latest_checkpoint(os.path.join(work,
+                                                               "out")))
+        traj = state["estimate_c2w_list"]
+        extra = {}
+        if name == "slam_geo":
+            extra["geo_decoders"] = geo_decoder_changes(cfg_path, state)
+        elif name == "slam_scannet":
+            wo = os.path.join(work, "out")
+            extra["end_correction"] = read_events(wo, "end_correction")
+            extra["map_iterations"] = [e["iters"] for e in
+                                       read_events(wo, "map")]
     except BaseException:
         shutil.rmtree(work, ignore_errors=True)
         raise
@@ -1847,9 +2070,20 @@ def run_slam(out_dir: str, name: str = "slam", profile: bool = False,
            "n_frames": summary["n_frames"], "launches": launches}
     if keep:
         out["work"] = work
+    out.update(extra)
     if name == "slam_tum":
         out["decode"] = decode
         out["cuts"] = TUM_CUTS
+    elif name == "slam_scannet":
+        out["decode"] = decode
+        out["cuts"] = SCANNET_CUTS
+        # per-iteration costs for tools/preflight.py's runtime estimate
+        out["track_ms_per_iter"] = (summary["track_ms_mean"]
+                                    / SCANNET_ADDITIONS["tracking"]["iters"])
+        its = extra["map_iterations"]
+        out["map_ms_per_iter"] = summary["map_ms_mean"] / (sum(its)
+                                                           / len(its))
+        emit({"slam_scannet_end_correction": extra["end_correction"]})
     if prof is not None:
         out["profile"] = prof
     with open(os.path.join(out_dir, f"{name}{tag}_summary.json"), "w") as f:
@@ -2052,6 +2286,28 @@ def run_resume(vis: dict, traj_vis) -> dict:
     if not all(checks.values()):
         raise AssertionError(f"resume: {out_rec}")
     return out_rec
+
+
+def run_telemetry(vis: dict) -> dict:
+    """slam_vis's run (slam's config and seed) ended with
+    plots/summary.png: it decodes through the port's PNG reader at the
+    summary's canvas size, and each of its four panels holds line pixels
+    (neither the white canvas nor the grey frame)."""
+    import numpy as np
+    from hpslam_tpu_torch.utils import image_io as IO
+    from hpslam_tpu_torch.utils import telemetry as T
+    path = os.path.join(vis["work"], "out", "plots", "summary.png")
+    img = IO.read_png(path)
+    lines = []
+    for k in range(4):
+        x0, y0, x1, y1 = T.panel_box(k)
+        box = img[y0 + 1:y1, x0 + 1:x1].astype(int)
+        lines.append(int((np.abs(box - 255).sum(-1) > 0).sum()))
+    out = {"file": os.path.relpath(path, vis["work"]),
+           "shape": list(img.shape), "line_pixels_per_panel": lines}
+    if not (img.shape == T.CANVAS_HW + (3,) and all(lines)):
+        raise AssertionError(f"telemetry: {out}")
+    return out
 
 
 def mesh_and_metrics(cfg_path: str, run_out: str, render_every: int,
@@ -2266,7 +2522,8 @@ def main(argv=None) -> int:
                 emit({"slam_vis": {k: v for k, v in vis.items()
                                    if k != "work"}})
         for name, fn in (("resume", lambda: run_resume(vis, traj_vis)),
-                         ("mesh", lambda: run_mesh(vis))):
+                         ("mesh", lambda: run_mesh(vis)),
+                         ("telemetry", lambda: run_telemetry(vis))):
             if name in phases:
                 with phase(name, seconds):
                     if vis is None:
@@ -2301,7 +2558,8 @@ def main(argv=None) -> int:
                              "bound_ms": r.get("bound_ms"),
                              "bound_by": r.get("bound_by"),
                              "tc_bound_ms": r.get("tc_bound_ms"),
-                             "library_ms": r.get("library_ms")})
+                             "library_ms": r.get("library_ms"),
+                             "bf16_ms": r.get("bf16_ms")})
     seconds["total"] = time.perf_counter() - t_all
     emit({"phase_seconds": seconds})
     with open(os.path.join(out_dir, "smoke_results.json"), "w") as f:

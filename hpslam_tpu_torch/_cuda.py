@@ -61,7 +61,7 @@ SIGNATURES = {
         ("hp_trackloss",
          [_P, _P, _I, _P, _P, _P, _P, _P, _P,    # rays rowc Dr .. gw cw
           _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,  # n S K C emb/hid nb skip
-          _F, _I, _I, _I, _I,                    # coef, flags
+          _F, _I, _I, _I, _I, _I,                # coef, flags, bf16
           _P, _P, _P, _P, _P, _P, _P, _P,        # g_depth .. daff
           _P], _I),                              # stream
     ],

@@ -33,6 +33,10 @@
 //      d(d) = sum_s z_s d(point_s), in sample order.
 // Kernel #8 is passes 1-2, #9 passes 1-4: #8's outputs and #9's forward
 // recompute come from the same pass, so they are the same bits.
+// The cached features are float32, or bfloat16 under model.mm_bf16 (the
+// tracker's frozen bf16 gather table): the tile passes are instantiated
+// for both, and each bf16 element is converted to float32 as it is loaded
+// (exact), so everything after the load is the float32 variant's.
 // A ray's S samples may straddle two tiles, so the per-ray work keeps its
 // own launches, and each sample of a tile reads its own ray's cache row.
 // `has` (enough neighbours inside the radius) comes from the frozen search
@@ -47,6 +51,8 @@
 // cores; the feature mix and the weight route, scalar f32, are spread over
 // all the block's threads, the features read from device memory (~2 kB a
 // sample, too large to stage).
+#include <cuda_bf16.h>
+
 #include "nicer_trunk_tc.cuh"
 
 #define HP_MAXK 16   // most neighbours per sample supported
@@ -56,6 +62,12 @@ struct TLShape {
   int wmode, use_affine, sigmoid_plain, backward;
   float coef;
 };
+
+// One cached feature element as float32 (bf16: exact).
+__device__ __forceinline__ float feat_ld(const float* f) { return *f; }
+__device__ __forceinline__ float feat_ld(const __nv_bfloat16* f) {
+  return __bfloat162float(*f);
+}
 
 // Cache row offsets: [z S | d_gt 1 | c_gt 3 | r2 1 | has S | nz 1 | cpos SK*3]
 __device__ __forceinline__ int o_r2(int S) { return S + 4; }
@@ -228,8 +240,9 @@ __host__ __device__ inline int tl_tile_floats(const TcSmem& sm, int C,
 // The feature of the tile's samples r (geometry into Cg, colour into Cc):
 // sum_j Wk[r][j] f_j, zero unless `has`; one (sample, channel) pair per
 // thread and step, neighbours in order.
+template <typename F>
 __device__ void tile_mix(const float* __restrict__ rowc,
-                         const float* __restrict__ cfeat, const TLShape& sh,
+                         const F* __restrict__ cfeat, const TLShape& sh,
                          const float* Wk, float* Cg, float* Cc, long m0,
                          long M) {
   const int C = sh.C, K = sh.K, C2 = 2 * sh.C;
@@ -240,9 +253,9 @@ __device__ void tile_mix(const float* __restrict__ rowc,
     if (m < M) {
       const long ray = m / sh.S;
       const int s = (int)(m % sh.S);
-      const float* f = cfeat + m * ((long)K * C2) + ch;
+      const F* f = cfeat + m * ((long)K * C2) + ch;
       float acc = 0.0f;
-      for (int j = 0; j < K; ++j) acc += Wk[r * K + j] * f[j * C2];
+      for (int j = 0; j < K; ++j) acc += Wk[r * K + j] * feat_ld(f + j * C2);
       v = rowc[ray * sh.Dr + o_has(sh.S) + s] > 0.5f ? acc : 0.0f;
     }
     if (ch < C) Cg[r * (C + 4) + ch] = v;
@@ -254,10 +267,11 @@ __device__ void tile_mix(const float* __restrict__ rowc,
 // ray*S + s.  The points, the normalised neighbour weights, the feature
 // mix, then both trunk forwards on the tensor cores; the outputs to the G
 // rows and, if the rows have them, the pre-activations to the A rows.
+template <typename F>
 __global__ void __launch_bounds__(TC_THREADS)
     tl_fwd_tiles(const float* __restrict__ rays,
                  const float* __restrict__ rowc,
-                 const float* __restrict__ cfeat,
+                 const F* __restrict__ cfeat,
                  const float* __restrict__ Bg, const float* __restrict__ Bc,
                  Core gw, Core cw, Rows rg, Rows rc, TLShape sh, TcSmem sm) {
   extern __shared__ float4 tc_raw[];
@@ -294,10 +308,11 @@ __global__ void __launch_bounds__(TC_THREADS)
 // the G rows (dL/dc of the geometry trunk in Cs, of the colour trunk in
 // Xs), the embedding route of d(point), then the weight route; d(point) to
 // the P rows.
+template <typename F>
 __global__ void __launch_bounds__(TC_THREADS)
     tl_bwd_tiles(const float* __restrict__ rays,
                  const float* __restrict__ rowc,
-                 const float* __restrict__ cfeat,
+                 const F* __restrict__ cfeat,
                  const float* __restrict__ Bg, const float* __restrict__ Bc,
                  Core gw, Core cw, Rows rg, Rows rc, TLShape sh, TcSmem sm,
                  float* __restrict__ P) {
@@ -334,13 +349,13 @@ __global__ void __launch_bounds__(TC_THREADS)
     const long m = m0 + r;
     float v = 0.0f;
     if (m < M) {
-      const float* f = cfeat + m * ((long)K * C2) + (long)j * C2;
+      const F* f = cfeat + m * ((long)K * C2) + (long)j * C2;
       const float* dg = T.geo.Cs + r * (C + 4);
       const float* dc = T.col.Cs + r * (C + 4);
       float t1 = 0.0f, t2 = 0.0f;
       for (int ch = 0; ch < C; ++ch) {
-        t1 += dg[ch] * f[ch];
-        t2 += dc[ch] * f[C + ch];
+        t1 += dg[ch] * feat_ld(f + ch);
+        t2 += dc[ch] * feat_ld(f + C + ch);
       }
       v = t1 + t2;
     }
@@ -435,30 +450,23 @@ extern "C" int hp_trackloss_blocks_per_sm(int C, int K, int emb_g, int hid_g,
   const int smem = trackloss_smem(C, K, emb_g, hid_g, emb_c, hid_c, &sm);
   int blocks = 0, rc;
   if (pass == 1) {
-    rc = tc_smem_attr(tl_fwd_tiles, smem);
+    rc = tc_smem_attr(tl_fwd_tiles<float>, smem);
     if (!rc)
       rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, tl_fwd_tiles, TC_THREADS, smem);
+          &blocks, tl_fwd_tiles<float>, TC_THREADS, smem);
   } else {
-    rc = tc_smem_attr(tl_bwd_tiles, smem);
+    rc = tc_smem_attr(tl_bwd_tiles<float>, smem);
     if (!rc)
       rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, tl_bwd_tiles, TC_THREADS, smem);
+          &blocks, tl_bwd_tiles<float>, TC_THREADS, smem);
   }
   return rc ? -rc : blocks;
 }
 
-// C entry point (bound with ctypes).
-//   backward == 0: kernel #8: depth (n,), var (n,), color (n, 3).
-//   backward == 1: kernel #9: from g_depth (n,), g_color (n, 3): drays
-//     (n, 6), daff (n, 12).
-// Both need hid_g, hid_c and C to be multiples of 8.
-// rays (n, 6) [o | d], rowc (n, Dr), cfeat (n, S*K*2C), aff (n, 12); Bg
-// (3, emb_g), Bc (3, emb_c / 2); gw / cw: host arrays of device pointers
-// to the core tensors in flatten_core order.  scratch holds
-// hp_trackloss_scratch_floats(...) floats.  Returns the first CUDA error.
-extern "C" int hp_trackloss(
-    const float* rays, const float* rowc, int Dr, const float* cfeat,
+// The launches of kernel #8 or #9 for features of type F (hp_trackloss).
+template <typename F>
+static int trackloss_run(
+    const float* rays, const float* rowc, int Dr, const F* cfeat,
     const float* aff, const float* Bg, const float* Bc,
     const void* const* gw, const void* const* cw, int n, int S, int K,
     int C, int emb_g, int hid_g, int emb_c, int hid_c, int nb, int skip,
@@ -466,7 +474,6 @@ extern "C" int hp_trackloss(
     const float* g_depth, const float* g_color, float* scratch,
     float* depth, float* var, float* color, float* drays, float* daff,
     void* stream) {
-  if (n <= 0) return 0;
   if (S > HP_MAXS || S < 1 || K > HP_MAXK || K < 1 || nb > HP_MAXB
       || nb < 1)
     return (int)cudaErrorInvalidValue;
@@ -485,12 +492,12 @@ extern "C" int hp_trackloss(
   Rows rc = tile_rows(rg.G + M, M, hid_c, nb, backward);
   TcSmem sm;
   const int smem = trackloss_smem(C, K, emb_g, hid_g, emb_c, hid_c, &sm);
-  int rc0 = tc_smem_attr(tl_fwd_tiles, smem);
-  if (!rc0 && backward) rc0 = tc_smem_attr(tl_bwd_tiles, smem);
+  int rc0 = tc_smem_attr(tl_fwd_tiles<F>, smem);
+  if (!rc0 && backward) rc0 = tc_smem_attr(tl_bwd_tiles<F>, smem);
   if (rc0) return rc0;
   const unsigned gt = (unsigned)((M + TC_TM - 1) / TC_TM);
-  tl_fwd_tiles<<<gt, TC_THREADS, smem, st>>>(rays, rowc, cfeat, Bg, Bc,
-                                             gcore, ccore, rg, rc, sh, sm);
+  tl_fwd_tiles<F><<<gt, TC_THREADS, smem, st>>>(rays, rowc, cfeat, Bg, Bc,
+                                                gcore, ccore, rg, rc, sh, sm);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   tl_rays<<<gr, TB, 0, st>>>(rowc, aff, rg, rc, sh, g_depth, g_color, depth,
@@ -498,10 +505,44 @@ extern "C" int hp_trackloss(
   e = cudaGetLastError();
   if (e != cudaSuccess || !backward) return (int)e;
   float* P = rc.G + 3 * M;
-  tl_bwd_tiles<<<gt, TC_THREADS, smem, st>>>(rays, rowc, cfeat, Bg, Bc,
-                                             gcore, ccore, rg, rc, sh, sm, P);
+  tl_bwd_tiles<F><<<gt, TC_THREADS, smem, st>>>(rays, rowc, cfeat, Bg, Bc,
+                                                gcore, ccore, rg, rc, sh, sm,
+                                                P);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   tl_drays<<<gr, TB, 0, st>>>(rowc, sh, P, drays);
   return (int)cudaGetLastError();
+}
+
+// C entry point (bound with ctypes).
+//   backward == 0: kernel #8: depth (n,), var (n,), color (n, 3).
+//   backward == 1: kernel #9: from g_depth (n,), g_color (n, 3): drays
+//     (n, 6), daff (n, 12).
+// Both need hid_g, hid_c and C to be multiples of 8.
+// rays (n, 6) [o | d], rowc (n, Dr), cfeat (n, S*K*2C): float32, or
+// bfloat16 with feat_bf16; aff (n, 12); Bg (3, emb_g), Bc (3, emb_c / 2);
+// gw / cw: host arrays of device pointers to the core tensors in
+// flatten_core order.  scratch holds hp_trackloss_scratch_floats(...)
+// floats.  Returns the first CUDA error.
+extern "C" int hp_trackloss(
+    const float* rays, const float* rowc, int Dr, const void* cfeat,
+    const float* aff, const float* Bg, const float* Bc,
+    const void* const* gw, const void* const* cw, int n, int S, int K,
+    int C, int emb_g, int hid_g, int emb_c, int hid_c, int nb, int skip,
+    float coef, int wmode, int use_affine, int sigmoid_plain, int backward,
+    int feat_bf16, const float* g_depth, const float* g_color,
+    float* scratch, float* depth, float* var, float* color, float* drays,
+    float* daff, void* stream) {
+  if (n <= 0) return 0;
+  if (feat_bf16)
+    return trackloss_run(
+        rays, rowc, Dr, (const __nv_bfloat16*)cfeat, aff, Bg, Bc, gw, cw, n,
+        S, K, C, emb_g, hid_g, emb_c, hid_c, nb, skip, coef, wmode,
+        use_affine, sigmoid_plain, backward, g_depth, g_color, scratch,
+        depth, var, color, drays, daff, stream);
+  return trackloss_run(
+      rays, rowc, Dr, (const float*)cfeat, aff, Bg, Bc, gw, cw, n, S, K, C,
+      emb_g, hid_g, emb_c, hid_c, nb, skip, coef, wmode, use_affine,
+      sigmoid_plain, backward, g_depth, g_color, scratch, depth, var, color,
+      drays, daff, stream);
 }

@@ -22,8 +22,11 @@ Two paths, chosen as the reference chooses them (``use_union``):
   through ``renderer.render_rays`` over the cached neighbours, in tracker
   mode under BA so that the window's camera tensors (all but the oldest
   keyframe) get gradients; the fused trunks (kernels #4-5, with the
-  position cotangent) serve it where ``fused_usable``.  Trainable geometry
-  decoders are ported on this path only.
+  position cotangent) serve it where ``fused_usable``.
+
+Either path trains both levels' geometry decoders when a
+``fix_geo_decoder_*`` flag is off (as the reference), on the plain trunks:
+the fused ones freeze the geometry core.
 
 Under a device mesh (``parallel.mesh``, dp ranks) each cache's query
 search is dp-sharded and the cache is then gathered whole on every rank;
@@ -295,12 +298,18 @@ def map_scan(params, mcfg: Dec.ModelConfig, rcfg: RenderConfig, opt_params,
     """One level phase of the mapping schedule on the union path.
 
     opt_params: {'feat' (U, 2C) packed [geo | col] table, optional 'dec'
-    (the level's colour decoder tree), optional 'expo_feat'}.
+    {f'col_{level}': tree (opt_color_dec), f'geo_{level}': tree
+    (geometry decoders trained)}, optional 'expo_feat'}.  Where the
+    geometry decoder trains, every stage reads it from 'dec'; the fused
+    trunks freeze the geometry core, so that needs mcfg.fused_mlp off.
     lr_table: (n_iters, 4) per-iteration LRs [decoders, geo, col, BA].
     mesh: optional ``parallel.mesh.Mesh``: each iteration's rays are
     dp-sharded, gradients and losses summed over dp (module docstring).
     Returns (opt_params, opt_state, losses (n_iters, 2) [geo, color])."""
     dev = cache_packed.device
+    if f"geo_{level}" in opt_params.get("dec", {}) and Dec.fused_usable(mcfg):
+        raise ValueError("map_scan: a trained geometry decoder needs the "
+                         "plain trunks (model.fused_mlp off)")
     use_fused_loss = (mcfg.fused_composite and Dec.fused_usable(mcfg)
                       and mesh is None)
     P = cache_pix.shape[1]
@@ -324,10 +333,13 @@ def map_scan(params, mcfg: Dec.ModelConfig, rcfg: RenderConfig, opt_params,
             tree["expo_feat"] = 0.001
         return tree
 
-    def col_dec_of(op):
-        return op["dec"] if "dec" in op else params[f"col_{level}"]
+    def dec_of(op, kind):
+        """The level's decoder of ``kind`` ('col' or 'geo'): the trained
+        one where 'dec' holds it, else the frozen parameters."""
+        name = f"{kind}_{level}"
+        return op.get("dec", {}).get(name, params[name])
 
-    def render_union(col_dec, with_color, row, feat, uids):
+    def render_union(geo_dec, col_dec, with_color, row, feat, uids):
         """Union-cache render without the loss kernel: the union-slot
         feature mix of the packed row, then the fused composite (trunks
         and compositor, kernel #6) where fused_composite and
@@ -344,7 +356,6 @@ def map_scan(params, mcfg: Dec.ModelConfig, rcfg: RenderConfig, opt_params,
         c_all = IT.union_gather(feat, uids, Wm).reshape(n * S, -1)
         c_all = torch.where(pmf[:, None], c_all, 0.0)
         c_geo = c_all[:, :C]
-        geo_dec = params[f"geo_{level}"]
         fused = Dec.fused_usable(mcfg)
         vmask = Dec.valid_ray_mask(pmf, S, rcfg.N_surface)
         if mcfg.fused_composite and fused:
@@ -381,7 +392,8 @@ def map_scan(params, mcfg: Dec.ModelConfig, rcfg: RenderConfig, opt_params,
         """The stage loss around render_union: masked L1 depth loss and,
         on colour stages, the per-frame exposure affine + sigmoid of the
         composited colour and the masked L1 colour loss."""
-        depth, color, vmask = render_union(dec, with_color, row, feat, uids)
+        depth, color, vmask = render_union(dec_of(op, "geo"), dec, with_color,
+                                           row, feat, uids)
         mask = (d_gt > 0) & vmask & torch.isfinite(depth) & inside
         gl = torch.sum(torch.where(mask, torch.abs(d_gt - depth), 0.0))
         if not with_color:
@@ -406,7 +418,7 @@ def map_scan(params, mcfg: Dec.ModelConfig, rcfg: RenderConfig, opt_params,
         # geometry stages read only the geo half of the feature rows: the
         # colour columns have zero cotangent there
         feat_v = op["feat"] if with_color else op["feat"][:, :C]
-        dec = col_dec_of(op)
+        dec = dec_of(op, "col")
         if not use_fused_loss:
             return plain_stage_loss(op, dec, fid, row, feat_v, uids, d_gt,
                                     inside, with_color)
@@ -839,16 +851,14 @@ class Mapper:
         expo_t = torch.as_tensor(expo, device=dev)
 
         opt_color_dec = not self.fix_color_decoder
+        # as the reference: both levels' geometry decoders train when
+        # either fix_geo_decoder_* flag is off (each phase trains its own
+        # level's)
         opt_geo_dec = not (self.fix_geo_mid and self.fix_geo_fine)
         # the union path holds for fixed poses and per-pixel-constant
         # weights: no BA, no rel-pos encoding (as the reference)
         use_union = not (use_ba or slam.mcfg.encode_rel_pos_in_col
                          or slam.mcfg.encode_rel_pos_in_geo)
-        if use_union and opt_geo_dec:
-            raise NotImplementedError(
-                "optimising the geometry decoders on the union mapping path "
-                "is not ported (the fused mapping paths freeze the geometry "
-                "core); see ROADMAP.md")
         # the fused trunks freeze the geometry core: off when it trains
         mcfg_run = (dataclasses.replace(slam.mcfg, fused_mlp=False)
                     if opt_geo_dec else slam.mcfg)
@@ -911,18 +921,13 @@ class Mapper:
             U = unique_bucket(count_unique(cacheI), lv.capacity)
             uniq, cacheI_c, pos_c, geo_c, col_c = compact_scene(
                 cacheI, lv.pos, lv.geo, lv.col, U)
-            if use_union:
-                opt_params = {"feat": torch.cat([geo_c, col_c], 1)}
-                if opt_color_dec:
-                    opt_params["dec"] = Opt.tree_map(
-                        torch.clone, new_params[f"col_{level}"])
-            else:
-                opt_params = {"geo": geo_c, "col": col_c}
-                dec = {name: Opt.tree_map(torch.clone, new_params[name])
-                       for name, on in ((f"col_{level}", opt_color_dec),
-                                        (f"geo_{level}", opt_geo_dec)) if on}
-                if dec:
-                    opt_params["dec"] = dec
+            opt_params = ({"feat": torch.cat([geo_c, col_c], 1)}
+                          if use_union else {"geo": geo_c, "col": col_c})
+            dec = {name: Opt.tree_map(torch.clone, new_params[name])
+                   for name, on in ((f"col_{level}", opt_color_dec),
+                                    (f"geo_{level}", opt_geo_dec)) if on}
+            if dec:
+                opt_params["dec"] = dec
             if self.use_exposure:
                 opt_params["expo_feat"] = torch.as_tensor(
                     np.asarray(new_expo), dtype=torch.float32, device=dev)
@@ -944,8 +949,6 @@ class Mapper:
                     mesh=slam.mesh)
                 npc.scatter_feats(uniq, opt_params["feat"][:, :C],
                                   opt_params["feat"][:, C:], level)
-                if opt_color_dec:
-                    new_params[f"col_{level}"] = opt_params["dec"]
             else:
                 loss_fn = samples_stage_loss(
                     new_params, mcfg_run, self.rcfg, colors, depths, c2ws_t,
@@ -958,7 +961,7 @@ class Mapper:
                     lr_table, n_geo, n_rays, P, F_actual, mesh=slam.mesh)
                 npc.scatter_feats(uniq, opt_params["geo"], opt_params["col"],
                                   level)
-                new_params.update(opt_params.get("dec", {}))
+            new_params.update(opt_params.get("dec", {}))
             if self.use_exposure:
                 new_expo = opt_params["expo_feat"].cpu().numpy()
             if use_ba:

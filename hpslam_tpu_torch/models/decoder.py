@@ -215,12 +215,37 @@ def fourier_features(x, B, concat_cos: bool):
     return torch.sin(proj)
 
 
+def _bf16(x):
+    """x rounded to bfloat16 and held in float32."""
+    return x.to(torch.bfloat16).float()
+
+
+def _apply_linear_bf16(p, x):
+    """x @ w + b with bf16 operands and f32 accumulation: each operand is
+    rounded to bfloat16 and the product taken in float32 (the product of
+    two bf16 values is exact in f32), on the CPU and the card alike."""
+    return _bf16(x) @ _bf16(p["w"]) + p["b"]
+
+
 def mlp_trunk(core: Params, cfg: ModelConfig, embedded, c, actvn):
     """Trunk with skip concat after block ``skip`` and per-block additive
-    feature injection h = act(h W + b) + c F + f."""
+    feature injection h = act(h W + b) + c F + f.
+
+    mm_bf16: bf16 operands with f32 accumulation and the f32 bias, the
+    activation in f32, each block's output (with its feature term) stored
+    as bfloat16, the skip concat with the bf16 embedding, the output layer
+    in f32 (the reference's _mlp_trunk)."""
     if cfg.mm_bf16:
-        raise NotImplementedError("mm_bf16 trunks are not ported; see "
-                                  "ROADMAP.md")
+        emb16 = embedded.to(torch.bfloat16)
+        c16 = c.to(torch.bfloat16)
+        h = emb16
+        for i, layer in enumerate(core["layers"]):
+            h = actvn(_apply_linear_bf16(layer, h))
+            h = (h + _apply_linear_bf16(core["fc_c"][i], c16)).to(
+                torch.bfloat16)
+            if i == cfg.skip:
+                h = torch.cat([emb16, h], dim=-1)
+        return _apply_linear_bf16(core["out"], h)
     h = embedded
     for i, layer in enumerate(core["layers"]):
         h = actvn(_apply_linear(layer, h))

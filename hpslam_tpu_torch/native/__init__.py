@@ -2,9 +2,11 @@
 (``native/hpslam_native.cpp``): TSDF fusion and marching-tetrahedra
 extraction, a kd-tree, normal estimation, point-to-plane ICP, FPFH + RANSAC
 registration and a BVH mesh raycaster, with the signatures of
-``hpslam_tpu/native/__init__.py``.
+``hpslam_tpu/native/__init__.py``; and of the port's own baseline JPEG
+codec (``hpslam_tpu_torch/native/jpeg.cpp``: ``jpeg_decode``, what
+``cv2.imread`` returns, bit for bit, and ``jpeg_encode``).
 
-The port has its own loader: at first use it compiles the source with the
+The port has its own loader: at first use it compiles each source with the
 flags of ``native/Makefile`` (``-O3 -std=c++17 -fPIC -shared -Wall``, plus
 ``-march=native`` where the compiler takes it) into ``build/native/`` at the
 repository root (or ``$HPSLAM_NATIVE_BUILD``), which ``.gitignore`` lists.
@@ -26,12 +28,14 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-_REPO = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_REPO = os.path.dirname(os.path.dirname(_HERE))
 SOURCE = os.path.join(_REPO, "native", "hpslam_native.cpp")
+JPEG_SOURCE = os.path.join(_HERE, "jpeg.cpp")
 CXXFLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-Wall"]
 
 _lib = None
+_jpeg = None
 _LOCK = threading.Lock()
 
 
@@ -68,25 +72,26 @@ def _compiler_id(cxx: str, flags: list) -> bytes:
     return out
 
 
-def lib_path(cxx: str, flags: list) -> str:
+def lib_path(cxx: str, flags: list, source: Optional[str] = None,
+             stem: str = "hpslam_native") -> str:
     h = hashlib.sha256((cxx + "\0" + " ".join(flags)).encode())
     h.update(_compiler_id(cxx, flags))
-    with open(SOURCE, "rb") as fh:
+    with open(source or SOURCE, "rb") as fh:
         h.update(fh.read())
-    return os.path.join(build_dir(),
-                        f"libhpslam_native_{h.hexdigest()[:16]}.so")
+    return os.path.join(build_dir(), f"lib{stem}_{h.hexdigest()[:16]}.so")
 
 
-def build() -> str:
-    """Compile the library unless its hashed file exists; returns its
-    path."""
+def build(source: Optional[str] = None, stem: str = "hpslam_native") -> str:
+    """Compile a library (by default the runtime, ``SOURCE``) unless its
+    hashed file exists; returns its path."""
+    source = source or SOURCE
     cxx = compiler()
     flags = compile_flags(cxx)
-    out = lib_path(cxx, flags)
+    out = lib_path(cxx, flags, source, stem)
     if os.path.exists(out):
         return out
     tmp = f"{out}.{os.getpid()}.tmp"
-    proc = subprocess.run([cxx, *flags, "-o", tmp, SOURCE],
+    proc = subprocess.run([cxx, *flags, "-o", tmp, source],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"native build failed ({cxx}):\n"
@@ -288,3 +293,74 @@ def fpfh_ransac_register(src: np.ndarray, src_normals: np.ndarray,
         _fp(src), src.shape[0], _fp(sn), _fp(tgt), tgt.shape[0], _fp(tn),
         feature_radius, max_corr_dist, max_iter, seed, _fp(Tout))
     return Tout, float(fit)
+
+
+# ---------------------------------------------------------------------------
+# baseline JPEG (jpeg.cpp)
+
+_U8P = ctypes.POINTER(ctypes.c_uint8)
+
+
+def _load_jpeg():
+    global _jpeg
+    with _LOCK:
+        if _jpeg is not None:
+            return _jpeg
+        lib = ctypes.CDLL(build(JPEG_SOURCE, "hpjpeg"))
+        ip = ctypes.POINTER(ctypes.c_int)
+        lib.hp_jpeg_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64,
+                                       ctypes.POINTER(_U8P), ip, ip,
+                                       ctypes.c_char_p, ctypes.c_int]
+        lib.hp_jpeg_decode.restype = ctypes.c_int
+        lib.hp_jpeg_encode.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                       ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_int, ctypes.c_int,
+                                       ctypes.POINTER(_U8P), ctypes.c_char_p,
+                                       ctypes.c_int]
+        lib.hp_jpeg_encode.restype = ctypes.c_int64
+        lib.hp_jpeg_free.argtypes = [_U8P]
+        lib.hp_jpeg_free.restype = None
+        _jpeg = lib
+        return lib
+
+
+def jpeg_decode(data: bytes) -> np.ndarray:
+    """A baseline JPEG file's bytes as (H, W, 3) uint8 RGB, what
+    ``cv2.imread`` returns in BGR.  Raises ValueError with the reason
+    (an unsupported process names its SOF marker)."""
+    lib = _load_jpeg()
+    out, h, w = _U8P(), ctypes.c_int(), ctypes.c_int()
+    err = ctypes.create_string_buffer(256)
+    if lib.hp_jpeg_decode(data, len(data), ctypes.byref(out), ctypes.byref(h),
+                          ctypes.byref(w), err, len(err)):
+        raise ValueError(err.value.decode())
+    try:
+        return np.ctypeslib.as_array(out, (h.value, w.value, 3)).copy()
+    finally:
+        lib.hp_jpeg_free(out)
+
+
+def jpeg_encode(img: np.ndarray, quality: int = 95,
+                subsampling: str = "420") -> bytes:
+    """(H, W) grey or (H, W, 3) RGB uint8 as baseline JPEG bytes: the
+    standard tables at ``quality``, chroma '420' or '444'."""
+    img = np.ascontiguousarray(img)
+    if img.dtype != np.uint8 or img.ndim not in (2, 3) or (
+            img.ndim == 3 and img.shape[2] != 3):
+        raise ValueError("jpeg_encode: (H, W) or (H, W, 3) uint8 images")
+    if subsampling not in ("420", "444"):
+        raise ValueError(f"jpeg_encode: subsampling 420 or 444, not "
+                         f"{subsampling!r}")
+    lib = _load_jpeg()
+    out = _U8P()
+    err = ctypes.create_string_buffer(256)
+    n = lib.hp_jpeg_encode(img.ctypes.data, img.shape[0], img.shape[1],
+                           1 if img.ndim == 2 else 3, int(quality),
+                           int(subsampling == "420"), ctypes.byref(out), err,
+                           len(err))
+    if n < 0:
+        raise ValueError(err.value.decode())
+    try:
+        return ctypes.string_at(out, n)
+    finally:
+        lib.hp_jpeg_free(out)

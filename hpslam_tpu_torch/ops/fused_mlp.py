@@ -254,9 +254,10 @@ class _MapLoss(torch.autograd.Function):
                 *[d * g_gl for d in dcol])
 
 
-def _check(name, t, shape=None, dev=None, what="maploss"):
-    if t.dtype != torch.float32:
-        raise ValueError(f"{what}: {name} must be float32")
+def _check(name, t, shape=None, dev=None, what="maploss",
+           dtype=torch.float32):
+    if t.dtype != dtype:
+        raise ValueError(f"{what}: {name} must be {dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{what}: {name} must be contiguous")
     if shape is not None and tuple(t.shape) != tuple(shape):
@@ -587,7 +588,9 @@ def trackloss_plain(rays, aff, rowc, cfeat, geo_flat, col_flat, Bs,
         w = torch.where(inr, torch.exp(-20.0 * torch.sqrt(
             torch.clamp(dd, min=1e-12))), 0.0)
     wn = w / torch.clamp(torch.sum(w, -1, keepdim=True), min=1e-12)
-    c = torch.sum(wn[..., None] * cfeat.reshape(n, S, K, 2 * C), 2)
+    # bf16 features (model.mm_bf16) are upcast as they are read
+    c = torch.sum(wn[..., None] * cfeat.reshape(n, S, K, 2 * C).to(
+        wn.dtype), 2)
     c = torch.where(has[..., None], c, 0.0).reshape(n * S, 2 * C)
     p = pts.reshape(n * S, 3)
     occ = _trunk(fourier_features(p, Bg, concat_cos=False), c[:, :C],
@@ -646,11 +649,20 @@ def launch_trackloss(rays, aff, rowc, cfeat, geo_flat, col_flat, Bs,
         _ptr_array(col_flat), n, S, K, C, emb_g, hid_g, emb_c, hid_c,
         n_blocks, skip, float(coef), int(wmode), int(use_affine),
         int(sigmoid_plain), int(backward),
+        int(cfeat.dtype == torch.bfloat16),
         g_depth.data_ptr() if backward else None,
         g_color.data_ptr() if backward else None, scratch.data_ptr(),
         *[t.data_ptr() if t is not None else None for t in outs], stream)
     _cuda.check(rc, "trackloss")
     return outs[3:] if backward else outs[:3]
+
+
+def _count_trackloss(which: str, cfeat) -> None:
+    """One launch of kernel #8 (which 'fwd') or #9 ('bwd'); launches on
+    bf16 features (model.mm_bf16) are tallied again under '<name>_bf16'."""
+    _cuda.LAUNCHES[f"trackloss_{which}"] += 1
+    if cfeat.dtype == torch.bfloat16:
+        _cuda.LAUNCHES[f"trackloss_{which}_bf16"] += 1
 
 
 class _TrackLoss(torch.autograd.Function):
@@ -660,7 +672,7 @@ class _TrackLoss(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, cfg, rays, aff, rowc, cfeat, Bg, Bc, n_geo, *flat):
-        _cuda.LAUNCHES["trackloss_fwd"] += 1
+        _count_trackloss("fwd", cfeat)
         depth, var, color = launch_trackloss(
             rays, aff, rowc, cfeat, flat[:n_geo], flat[n_geo:], (Bg, Bc),
             backward=False, **cfg)
@@ -673,7 +685,7 @@ class _TrackLoss(torch.autograd.Function):
     def backward(ctx, g_depth, _g_var, g_color):
         rays, aff, rowc, cfeat, Bg, Bc, *flat = ctx.saved_tensors
         n_geo = ctx.n_geo
-        _cuda.LAUNCHES["trackloss_bwd"] += 1
+        _count_trackloss("bwd", cfeat)
         drays, daff = launch_trackloss(
             rays, aff, rowc, cfeat, flat[:n_geo], flat[n_geo:], (Bg, Bc),
             backward=True, g_depth=g_depth.contiguous(),
@@ -697,9 +709,9 @@ def nicer_fused_trackloss(rays, aff, rowc, cfeat, geo_flat, col_flat, Bs,
                wmode=wmode, use_affine=use_affine,
                sigmoid_plain=sigmoid_plain)
     dev = rays.device
-    if cfeat.dtype != torch.float32:
-        raise ValueError("trackloss: cfeat must be float32 (bf16 features "
-                         "belong to model.mm_bf16, which is not ported)")
+    if cfeat.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"trackloss: cfeat must be float32 or bfloat16 "
+                         f"(model.mm_bf16), not {cfeat.dtype}")
     if dev.type == "cpu":
         const = [t.detach() for t in geo_flat + col_flat]
         d, v, c = trackloss_plain(
@@ -712,7 +724,8 @@ def nicer_fused_trackloss(rays, aff, rowc, cfeat, geo_flat, col_flat, Bs,
     _check("rays", rays, (n, 6), dev, "trackloss")
     _check("aff", aff, (n, 12), dev, "trackloss")
     _check("rowc", rowc, (n, 2 * S + 6 + 3 * S * K), dev, "trackloss")
-    _check("cfeat", cfeat, (n, S * K * 2 * C), dev, "trackloss")
+    _check("cfeat", cfeat, (n, S * K * 2 * C), dev, "trackloss",
+           cfeat.dtype)
     for name, t in [("Bg", Bs[0]), ("Bc", Bs[1])] \
             + [("weight", w) for w in geo_flat + col_flat]:
         _check(name, t, None, dev, "trackloss")
@@ -724,7 +737,7 @@ def nicer_fused_trackloss(rays, aff, rowc, cfeat, geo_flat, col_flat, Bs,
     if torch.is_grad_enabled() and (rays.requires_grad or aff.requires_grad):
         return _TrackLoss.apply(cfg, rays, aff, rowc, cfeat, Bs[0], Bs[1],
                                 len(geo_flat), *geo_flat, *col_flat)
-    _cuda.LAUNCHES["trackloss_fwd"] += 1
+    _count_trackloss("fwd", cfeat)
     return launch_trackloss(rays, aff, rowc, cfeat, geo_flat, col_flat, Bs,
                             backward=False, **cfg)
 

@@ -12,15 +12,14 @@ fine level's colour), logged as ``vis`` events.  ``resume`` continues from
 the output's latest checkpoint (``restore_from``).  After the colour
 refinement, ``mapping.end_correction`` registers the trajectory tail
 against the early map (``tools.end_correction``), logged as an
-``end_correction`` event.
+``end_correction`` event.  Every record of ``metrics.jsonl`` is mirrored
+to wandb where ``wandb: True`` and the package imports
+(``utils.telemetry``), and the run ends with ``plots/summary.png``.
 
 With ``mesh`` in the config (``--mesh dp2``; ``parallel.mesh``) the
 tracker and mapper run their dp-sharded programs; every rank runs this
 loop on the same data and seeds and holds the same state, and only rank 0
 writes outputs and prints.
-
-Not ported (raises NotImplementedError when enabled): telemetry
-(``wandb``).
 """
 from __future__ import annotations
 
@@ -40,6 +39,7 @@ from .state import NeuralPointCloud
 from .tracker import Tracker
 from .utils.datasets import Prefetcher, get_dataset
 from .utils.logger import Logger, latest_checkpoint, load_checkpoint
+from .utils.telemetry import Telemetry, summarize_run
 from .utils.visualizer import Visualizer
 
 
@@ -59,9 +59,6 @@ class PointSLAM:
                 torch.cuda.set_device(self.device)
             self.mesh = parse_mesh_spec(cfg["mesh"], self.device.type)
         self.is_main = self.mesh is None or self.mesh.is_main
-        if cfg.get("wandb"):
-            raise NotImplementedError("telemetry is not ported yet; see "
-                                      "ROADMAP.md")
         self.verbose = cfg.get("verbose", True) and self.is_main
         self.output = cfg["data"]["output"]
         self.ckptsdir = os.path.join(self.output, "ckpts")
@@ -111,6 +108,7 @@ class PointSLAM:
         self.ckpt_freq = cfg["mapping"]["ckpt_freq"]
         self.metrics_path = (os.path.join(self.output, "metrics.jsonl")
                              if self.is_main else os.devnull)
+        self.telemetry = Telemetry(cfg if self.is_main else {}, self.output)
 
     def update_cam(self):
         cfg = self.cfg
@@ -152,6 +150,7 @@ class PointSLAM:
     def _log_metrics(self, f, record: dict):
         f.write(json.dumps(record) + "\n")
         f.flush()
+        self.telemetry.log(record, step=record.get("idx"))
 
     def _log_vis(self, mf, what: str, records):
         for rec in records:
@@ -305,8 +304,15 @@ class PointSLAM:
                     if map_times else 0.0,
                     "n_frames": n}
                 self._log_metrics(mf, {"event": "summary", **summary})
+            if self.is_main:
+                plot = summarize_run(self.output)
+                if plot:
+                    self.telemetry.log_image("run_summary", plot)
+                    if self.verbose:
+                        print(f"Run summary plots: {plot}", flush=True)
         finally:
             prefetcher.close()
+            self.telemetry.finish()
             if self.mesh is not None:
                 self.mesh.close()
         return results, summary

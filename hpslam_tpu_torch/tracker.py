@@ -222,7 +222,11 @@ def track_frame(params, mcfg: Dec.ModelConfig, rcfg: RenderConfig,
 
     def run_stage(stage, level, tile_index, r_query_map, iters):
         pos, _count, geo, col = level
+        # the [geo | col] gather table, bfloat16 under mm_bf16: the tracker
+        # never writes features, and the gathers upcast after the mix
         cat_feats = torch.cat([geo, col], dim=1)
+        if mcfg.mm_bf16:
+            cat_feats = cat_feats.to(torch.bfloat16)
         for s in range(resample_stages):
             sub = iters // resample_stages + (
                 1 if s < iters % resample_stages else 0)

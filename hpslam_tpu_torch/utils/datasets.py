@@ -9,8 +9,10 @@ optional ``crop_size`` resize (bilinear colour, nearest depth), then the
 and z columns negated into the -z-forward camera frame; TUM associates its
 rgb / depth / pose lists by timestamp, keeps frames 1/32 s apart and
 re-bases the first pose to the identity.  Images are decoded by the
-port's own numpy PNG / EXR codecs (``image_io``, ``exr``); only JPEG
-(Replica, ScanNet, Azure colour) needs cv2, imported at the decode.
+port's own codecs (``image_io``, ``exr``): PNG and EXR in numpy, JPEG
+(Replica, ScanNet, Azure colour) by its baseline decoder in C++
+(``native.jpeg_decode``).  ``write_tum_rgbd`` and ``write_scannet_tree``
+write frames as TUM RGB-D and ScanNet trees.
 
 Plus the procedural ``synthetic`` family (the analytic textured cube room
 with an orbiting camera, its sensor model and trajectories, identical to
@@ -285,6 +287,26 @@ def write_tum_rgbd(folder: str, frames, png_depth_scale: float = 5000.0,
                         ("groundtruth.txt", gt)):
         with open(os.path.join(folder, name), "w") as f:
             f.write("\n".join(lines) + "\n")
+
+
+def write_scannet_tree(folder: str, frames, png_depth_scale: float = 1000.0):
+    """Write frames (RGB colour in [0, 1], depth in metres, c2w in the
+    readers' -z-forward frame) as a ScanNet tree that ``ScanNet`` reads
+    back: color/<i>.jpg (baseline JPEG, quality 95, 4:2:0, through
+    ``image_io.write_jpeg``), depth/<i>.png (16-bit at png_depth_scale),
+    pose/<i>.txt (the 4x4 camera-to-world matrix with y and z flipped
+    back, as ScanNet stores it)."""
+    for sub in ("color", "depth", "pose"):
+        os.makedirs(os.path.join(folder, sub), exist_ok=True)
+    for i, fr in enumerate(frames):
+        IO.write_jpeg(os.path.join(folder, "color", f"{i}.jpg"),
+                      np.round(np.clip(fr.color, 0, 1) * 255).astype(
+                          np.uint8))
+        IO.write_png(os.path.join(folder, "depth", f"{i}.png"),
+                     np.round(np.clip(fr.depth * png_depth_scale, 0, 65535)
+                              ).astype(np.uint16))
+        np.savetxt(os.path.join(folder, "pose", f"{i}.txt"),
+                   _flip_yz(np.asarray(fr.c2w, np.float64)))
 
 
 class Synthetic(_Reader):

@@ -8,8 +8,9 @@ cv2 calls, hpslam_tpu/utils/datasets.py):
   channel order (RGB, not BGR).  ``write_png`` writes such files, its
   rows filtered by libpng's adaptive choice or by one given type.
 * ``read_color``: ``cv2.imread(path)`` (3 channels, 8 bits) in RGB order;
-  JPEG files are decoded by cv2, imported at the call, and are the only
-  images that need it.
+  JPEG files through the port's own baseline decoder (``native.jpeg_decode``,
+  C++ on the host, cv2's pixels bit for bit).  ``write_jpeg`` writes
+  baseline JPEG files (``native.jpeg_encode``).
 * ``undistort``: ``cv2.undistort(img, K, dist)`` (newCameraMatrix = K) of
   an 8-bit image, with cv2's fixed-point bilinear remap.
 * ``resize``: ``cv2.resize`` of a float image, INTER_LINEAR or
@@ -189,20 +190,30 @@ def write_png(path: str, img: np.ndarray, filt: str = "adaptive") -> None:
                  + chunk(b"IEND", b""))
 
 
+def write_jpeg(path: str, img: np.ndarray, quality: int = 95,
+               subsampling: str = "420") -> None:
+    """Write img ((H, W) grey or (H, W, 3) RGB, uint8) as a baseline JPEG
+    file: the standard (Annex K) tables scaled to ``quality`` as libjpeg
+    scales them, chroma '420' or '444'."""
+    from ..native import jpeg_encode
+    data = jpeg_encode(img, quality, subsampling)
+    with open(path, "wb") as fh:
+        fh.write(data)
+
+
 def read_color(path: str) -> np.ndarray:
     """An image file as (H, W, 3) uint8 RGB, as ``cv2.imread(path)`` (grey
     replicated, alpha dropped, 16 bits cut to their high byte) reads it in
-    BGR.  JPEG goes through cv2."""
+    BGR.  JPEG goes through the port's baseline decoder: any other JPEG
+    process raises ValueError naming the file and the marker."""
     if path.lower().endswith((".jpg", ".jpeg")):
+        from ..native import jpeg_decode
+        with open(path, "rb") as fh:
+            data = fh.read()
         try:
-            import cv2
-        except ImportError as e:
-            raise ImportError(f"{path}: decoding JPEG needs cv2 (OpenCV), "
-                              "which is not installed") from e
-        img = cv2.imread(path)
-        if img is None:
-            raise ValueError(f"{path}: cv2 could not decode it")
-        return np.ascontiguousarray(img[..., ::-1])      # BGR -> RGB
+            return jpeg_decode(data)
+        except ValueError as e:
+            raise ValueError(f"{path}: {e}") from None
     img = read_png(path)
     if img.dtype == np.uint16:
         img = (img >> 8).astype(np.uint8)

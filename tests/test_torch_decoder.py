@@ -137,3 +137,48 @@ def test_eval_stage_fused_trunks_match_plain(rng):
         for name, a, b in zip(("raw", "dgeo", "dcol", "dWout"), *outs):
             np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=1e-5,
                                        atol=1e-6, err_msg=f"{stage} {name}")
+
+
+@pytest.mark.parametrize("trunk", ["geo", "col"])
+def test_mlp_trunk_mm_bf16_matches_reference(rng, trunk):
+    """model.mm_bf16's trunk (bf16 operands, f32 accumulation and bias,
+    f32 activation, bf16 block outputs and skip concat) against the
+    reference's _mlp_trunk: forward and the gradients in the embedding,
+    the feature and every weight, at the reference's own bf16 tolerance
+    (tests/test_engines.py: 1e-2).  Both round the same operands to bf16;
+    the sums run in another order and the backward's bf16 casts sit where
+    JAX's transpose rules put them, so outputs differ by bf16 ulps."""
+    cfg = small_cfg(mm_bf16=True)
+    pj, pt = params_pair(cfg, seed=3)
+    name = f"{trunk}_fine"
+    core_j, core_t = pj[name]["core"], pt[name]["core"]
+    emb_w = core_j["layers"][0]["w"].shape[0]
+    n = 96
+    e = rng.normal(0, 1.0, (n, emb_w)).astype(np.float32)
+    c = rng.normal(0, 0.3, (n, 8)).astype(np.float32)
+    g = rng.normal(size=(n, core_j["out"]["w"].shape[1])).astype(np.float32)
+    act_j = jax.nn.relu if trunk == "geo" else jDec.softplus100
+    act_t = torch.relu if trunk == "geo" else tDec.softplus100
+
+    def fj(core, e_, c_):
+        out = jDec._mlp_trunk(core, cfg, e_, c_, act_j)
+        return jnp.sum(out * g), out
+
+    (_, out_j), grads_j = jax.value_and_grad(fj, argnums=(0, 1, 2),
+                                             has_aux=True)(
+        core_j, jnp.asarray(e), jnp.asarray(c))
+    leaves_t = [t.requires_grad_() for t in jax.tree.leaves(core_t)]
+    e_t = torch.tensor(e, requires_grad=True)
+    c_t = torch.tensor(c, requires_grad=True)
+    out_t = tDec.mlp_trunk(core_t, t_cfg(cfg), e_t, c_t, act_t)
+    assert out_t.dtype == torch.float32
+    torch.sum(out_t * torch.tensor(g)).backward()
+    np.testing.assert_allclose(out_t.detach().numpy(), np.asarray(out_j),
+                               rtol=1e-2, atol=1e-2)
+    gj = jax.tree.leaves(grads_j[0]) + [grads_j[1], grads_j[2]]
+    gt = [t.grad for t in leaves_t] + [e_t.grad, c_t.grad]
+    assert len(gj) == len(gt)
+    for a, b in zip(gt, gj):
+        b = np.asarray(b, np.float32)
+        np.testing.assert_allclose(a.numpy(), b, rtol=1e-2,
+                                   atol=1e-2 * max(1.0, np.abs(b).max()))

@@ -285,7 +285,8 @@ def test_map_scan_stage_reduces_loss(rng):
     uniq, uids_c, _, geo_c, col_c = tM.compact_scene(uids, pos, geo, col, U)
     packed = tM.pack_union_cache(const, Wm, pm, uids_c)
     op = {"feat": torch.cat([geo_c, col_c], 1),
-          "dec": tOpt.tree_map(torch.clone, params["col_fine"])}
+          "dec": {"col_fine": tOpt.tree_map(torch.clone,
+                                            params["col_fine"])}}
     n_it = 30
     lr = np.tile(np.array([[0.005, 0.03, 0.02, 0.0]], np.float32), (n_it, 1))
     op, ost, losses = tM.map_scan(
@@ -298,9 +299,9 @@ def test_map_scan_stage_reduces_loss(rng):
     assert losses[-1, 1] < losses[10, 1]
     assert losses[-1, 1] > 0
     # the colour decoder moved; frozen leaves did not
-    assert not torch.equal(op["dec"]["core"]["out"]["w"],
+    assert not torch.equal(op["dec"]["col_fine"]["core"]["out"]["w"],
                            params["col_fine"]["core"]["out"]["w"])
-    assert torch.equal(op["dec"]["B"], params["col_fine"]["B"])
+    assert torch.equal(op["dec"]["col_fine"]["B"], params["col_fine"]["B"])
 
 
 def test_build_schedule_matches_reference():
@@ -390,3 +391,62 @@ def test_union_cache_helpers_match_reference(rng):
                                       np.eye(4), poses, 3, 20.0, 20.0, 15.5,
                                       11.5)
     assert list(a) == list(b)
+
+
+@pytest.mark.parametrize("dense", [True, False], ids=["dense", "gather"])
+def test_track_frame_mm_bf16_matches_reference(rng, monkeypatch, dense):
+    """The plain tracker under model.mm_bf16 (the bf16 [geo | col] gather
+    table, the bf16 trunks) against the reference's track_frame with
+    fused_track off, on the same weights, wall cloud, frame and pixel
+    draws (the reference's own, from its key): the loss curve and the
+    selected pose at the reference's bf16 tolerances
+    (tests/test_engines.py: rtol / atol 1e-2, the pose to atol 1e-3), with
+    the dense cache and with the per-iteration gathers."""
+    from hpslam_tpu import tracker as jT
+
+    jcfg = small_cfg(mm_bf16=True)
+    pj = jDec.init_nicer(jax.random.PRNGKey(0), jcfg)
+    params = convert.params_from_numpy(jax.tree.map(np.asarray, pj))
+    pos, count, geo, col = jte.wall_level(rng)
+    H, W = 24, 32
+    fx = fy = 20.0
+    cx, cy = 15.5, 11.5
+    jj, ii = np.mgrid[0:H, 0:W]
+    dirs0 = np.stack([(ii - cx) / fx, -(jj - cy) / fy,
+                      -np.ones_like(ii, float)], -1)
+    depth = (2.0 / -dirs0[..., 2]).astype(np.float32)
+    color = rng.uniform(0.2, 0.8, (H, W, 3)).astype(np.float32)
+    rqm = np.full((H, W), 0.4, np.float32)
+    pool = np.arange(H * W, dtype=np.int32)
+    cam0 = np.array([1, 0, 0, 0, 0.04, -0.02, 0.03], np.float32)
+    key = jax.random.PRNGKey(2)
+    kw = dict(pixels=200, iters_mid=2, iters_fine=2, W=W, fx=fx, fy=fy,
+              cx=cx, cy=cy, cam_lr=0.01, separate_lr=False,
+              use_exposure=False, w_color=0.5, use_color=True,
+              handle_dynamic=True, dense_cache=dense)
+    idx_j = jK.build_tiles(pos, count)
+    cam_j, _best_j, loss_j, _ = jT.track_frame(
+        pj, jcfg, jR.RenderConfig(sample_near_pcl=False),
+        jnp.asarray(cam0), key, jnp.asarray(color), jnp.asarray(depth),
+        jnp.asarray(rqm), jnp.asarray(rqm), jnp.asarray(pool),
+        jnp.int32(pool.size), pos, count, geo, col, idx_j, pos, count, geo,
+        col, idx_j, jnp.zeros(8), fused_track=False, **kw)
+    # the reference's pixel draws: one per stage (resample_stages 1)
+    draws = iter([torch.tensor(np.asarray(jax.random.randint(
+        jax.random.fold_in(k, 0), (200,), 0, pool.size)), dtype=torch.int64)
+        for k in jax.random.split(key)])
+    monkeypatch.setattr(torch, "randint", lambda *a, **k: next(draws))
+    level = (torch.tensor(np.asarray(pos)), int(count),
+             torch.tensor(np.asarray(geo)), torch.tensor(np.asarray(col)))
+    idx_t = tK.build_tiles(level[0], level[1])
+    cam_t, _best_t, loss_t, _ = tT.track_frame(
+        params, t_cfg(jcfg), tR.RenderConfig(sample_near_pcl=False),
+        torch.tensor(cam0), torch.Generator().manual_seed(0),
+        torch.tensor(color), torch.tensor(depth), torch.tensor(rqm),
+        torch.tensor(rqm), torch.tensor(pool).long(), pool.size, level,
+        idx_t, level, idx_t, torch.zeros(8), **kw)
+    loss_j = np.asarray(loss_j)
+    assert np.isfinite(loss_j).all() and loss_j.shape == (4,)
+    np.testing.assert_allclose(loss_t.numpy(), loss_j, rtol=1e-2, atol=1e-2)
+    np.testing.assert_allclose(cam_t.numpy(), np.asarray(cam_j), rtol=1e-2,
+                               atol=1e-3)

@@ -151,11 +151,14 @@ def test_png_rejects_what_it_does_not_decode(tmp_path, rng):
 
 
 def test_jpeg_needs_cv2_and_names_the_file(tmp_path, rng, monkeypatch):
+    """JPEG no longer needs cv2 (the port decodes it itself): with cv2's
+    import refused, read_color still returns cv2.imread's pixels; a file
+    it cannot decode raises ValueError naming the file."""
     import builtins
     p = str(tmp_path / "f.jpg")
     img = _photo(rng, 16, 24)
     cv2.imwrite(p, img)
-    np.testing.assert_array_equal(IO.read_color(p), cv2.imread(p)[..., ::-1])
+    ref = cv2.imread(p)[..., ::-1]
     real_import = builtins.__import__
 
     def no_cv2(name, *a, **kw):
@@ -164,7 +167,10 @@ def test_jpeg_needs_cv2_and_names_the_file(tmp_path, rng, monkeypatch):
         return real_import(name, *a, **kw)
 
     monkeypatch.setattr(builtins, "__import__", no_cv2)
-    with pytest.raises(ImportError, match="f.jpg"):
+    np.testing.assert_array_equal(IO.read_color(p), ref)
+    with open(p, "r+b") as fh:
+        fh.truncate(100)
+    with pytest.raises(ValueError, match="f.jpg"):
         IO.read_color(p)
 
 

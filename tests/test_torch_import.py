@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: importing it pulls in neither jax nor
-hpslam_tpu (nor cv2, which only the JPEG decode imports, at the call), no
-port file (nor chip_smoke.py) imports them, and the entry points refuse to
-drift onto the CPU."""
+hpslam_tpu (nor cv2, matplotlib or PIL; wandb only inside
+Telemetry.__init__), no port file (nor chip_smoke.py) imports them, and
+the entry points refuse to drift onto the CPU."""
 import os
 import re
 import subprocess
@@ -63,29 +63,64 @@ def test_sources_do_not_mention_jax_or_reference_imports():
 
 
 def test_cv2_only_inside_the_jpeg_decode():
-    """The card's machine has no cv2: no port module (nor chip_smoke.py)
-    imports it at module level, importing every module leaves it out, and
-    the one import sits in image_io.read_color's JPEG branch."""
+    """The card's machine has no cv2, and the port decodes JPEG itself
+    (native/jpeg.cpp): no port module (nor chip_smoke.py) imports cv2 at
+    all, the JPEG decoder and the telemetry module are among the modules
+    imported, and importing every module leaves cv2 out."""
+    mods = _port_modules()
+    assert {"hpslam_tpu_torch.utils.image_io",
+            "hpslam_tpu_torch.utils.telemetry",
+            "hpslam_tpu_torch.tools.preflight",
+            "hpslam_tpu_torch.tools.convert_pretrained"} <= set(mods)
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, fs in os.walk(PKG):
         files += [os.path.join(dirpath, f) for f in fs if f.endswith(".py")]
-    inside = []
     for path in files:
         with open(path) as f:
-            src = f.read()
-        assert not re.search(r"^(import|from)\s+cv2\b", src, re.M), path
-        if re.search(r"^\s+(import|from)\s+cv2\b", src, re.M):
-            inside.append(os.path.relpath(path, ROOT))
-    assert inside == [os.path.join("hpslam_tpu_torch", "utils",
-                                   "image_io.py")]
+            assert not re.search(r"^\s*(import|from)\s+cv2\b", f.read(),
+                                 re.M), path
     code = ("import importlib, sys\n"
-            f"for m in {_port_modules()!r}:\n"
+            f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
             "assert 'cv2' not in sys.modules\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
+
+
+def test_wandb_only_inside_telemetry_init():
+    """wandb is optional: the one import of it sits in
+    utils/telemetry.Telemetry.__init__, and no other port file (nor
+    chip_smoke.py) imports it."""
+    import ast
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, fs in os.walk(PKG):
+        files += [os.path.join(dirpath, f) for f in fs if f.endswith(".py")]
+    found = []
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        parents = {}
+        for node in ast.walk(tree):
+            for child in ast.iter_child_nodes(node):
+                parents[child] = node
+        for node in ast.walk(tree):
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import)
+                     else [node.module or ""]
+                     if isinstance(node, ast.ImportFrom) else [])
+            if not any(n.split(".")[0] == "wandb" for n in names):
+                continue
+            chain, p = [], parents.get(node)
+            while p is not None:
+                if isinstance(p, (ast.FunctionDef, ast.ClassDef)):
+                    chain.append(p.name)
+                p = parents.get(p)
+            found.append((os.path.relpath(path, ROOT), chain[::-1]))
+    assert found == [(os.path.join("hpslam_tpu_torch", "utils",
+                                   "telemetry.py"),
+                      ["Telemetry", "__init__"])], found
 
 
 def test_no_plotting_or_imaging_library():

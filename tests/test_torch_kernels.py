@@ -227,18 +227,23 @@ def test_trunks_kernels_match_plain(cuda, with_color, need_dp, n,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("use_affine,wmode,n", [(False, 0, 500),
-                                                (True, 0, 500),
-                                                (False, 1, 500),
-                                                (False, 0, 501)])
-def test_trackloss_kernels_match_plain(cuda, use_affine, wmode, n):
+@pytest.mark.parametrize("use_affine,wmode,n,bf16", [(False, 0, 500, False),
+                                                     (True, 0, 500, False),
+                                                     (False, 1, 500, False),
+                                                     (False, 0, 501, False),
+                                                     (False, 0, 501, True)])
+def test_trackloss_kernels_match_plain(cuda, use_affine, wmode, n, bf16):
     """Kernels #8 (forward) and #9 (backward) under autograd against
     trackloss_plain differentiated by autograd, at the full model width
     (chip_smoke.py's inputs, fewer rays; 501 rays: 2505 samples, not a
-    multiple of the 64-sample tile).  Two runs of #8 and of #9 agree bit
-    for bit, and so does #8's bare launcher."""
+    multiple of the 64-sample tile); bf16: the same bf16 feature rows for
+    both (model.mm_bf16; each element upcast exactly, so the same
+    tolerances), launched on the kernels' bf16 variant.  Two runs of #8
+    and of #9 agree bit for bit, and so does #8's bare launcher."""
     import chip_smoke
     I = chip_smoke.trackloss_inputs(torch, cuda, n=n)
+    if bf16:
+        I["cfeat"] = I["cfeat"].to(torch.bfloat16)
     mcfg, S, K = I["mcfg"], I["S"], I["K"]
     rays, aff, rowc, cfeat = I["rays"], I["aff"], I["rowc"], I["cfeat"]
     geo, col, Bs = I["geo"], I["col"], I["Bs"]
@@ -258,6 +263,8 @@ def test_trackloss_kernels_match_plain(cuda, use_affine, wmode, n):
     torch.cuda.synchronize()
     for name in ("trackloss_fwd", "trackloss_bwd"):
         assert _cuda.LAUNCHES[name] == before.get(name, 0) + 2
+        assert _cuda.LAUNCHES[f"{name}_bf16"] == before.get(
+            f"{name}_bf16", 0) + (2 if bf16 else 0)
     (dk, vk, ck, drk, dak), again, (dp_, vp, cp, drp, dap) = outs
     assert all(torch.equal(x, y) for x, y in zip(outs[0], again))
     kw = dict(zip(("n_blocks", "skip", "S", "K", "C", "coef", "wmode",

@@ -182,12 +182,14 @@ def _map_inputs(rng):
                    (12, 1)))
 
 
-def _map_phase(x, params, mcfg, slots=None, spec="dp1"):
+def _map_phase(x, params, mcfg, slots=None, spec="dp1",
+               decoders=("col_fine",)):
     """The mesh path's union phase, as Mapper.map runs it: the union cache
     (dp-sharded search, gathered whole), compaction, packing, then
     map_scan.  ``slots``: per-iteration slot draws to use in place of the
-    generator's (the reference's draws).  Returns (losses, geo, col of the
-    whole table after the write-back, the colour decoder) and the phase's
+    generator's (the reference's draws); ``decoders``: those trained.
+    Returns (losses, geo, col of the whole table after the write-back, the
+    trained decoders {name: tree}) and the phase's
     inputs (packed cache, cached pixels, compacted ids, compacted table
     rows, their global ids)."""
     mesh = tMesh.parse_mesh_spec(spec, "cpu")
@@ -211,7 +213,8 @@ def _map_phase(x, params, mcfg, slots=None, spec="dp1"):
         packed = tM.pack_union_cache(const, Wm, pm, uids_c)
         feat0 = torch.cat([geo_c, col_c], 1)
         op = {"feat": feat0.clone(),
-              "dec": tOpt.tree_map(torch.clone, params["col_fine"])}
+              "dec": {d: tOpt.tree_map(torch.clone, params[d])
+                      for d in decoders}}
         rcfg = tR.RenderConfig(sample_near_pcl=False)
         randint = torch.randint
         if slots is not None:
@@ -417,13 +420,72 @@ def test_mesh_map_scan_matches_reference(rng):
         cache_packed=jnp.asarray(ph["packed"].numpy()), geo_iters=4)
     ref = (torch.tensor(np.asarray(losses)),
            *write_back(x, ph["uniq"], op["feat"]),
-           convert.params_from_numpy(jax.tree.map(
-               np.asarray, op["dec"]["col_fine"])))
+           convert.params_from_numpy(jax.tree.map(np.asarray, op["dec"])))
     assert np.isfinite(ref[0].numpy()).all() and (ref[0][4:, 1] > 0).all()
     # two implementations round differently; Adam turns a gradient near
     # its eps (1e-8) into a step of up to lr whatever its rounding, so a
     # few feature entries walk apart (1 of 16384 here, by 3.5e-3)
     _check_mesh_equivalence(ref, port, frac=CROSS_IMPL_FRAC)
+
+
+def test_map_scan_trains_geometry_decoders_matches_reference(rng):
+    """The union map_scan with the geometry decoder trained beside the
+    colour decoder (fix_geo_decoder_* off: the plain trunks, no mesh)
+    against the reference's map_scan on the same packed cache, compacted
+    table, weights and ray draws (its own, from its key), with
+    opt_geo_dec: losses, feature tables and both decoders at the
+    cross-implementation tolerances of test_mesh_map_scan_matches_reference
+    (module docstring), and every leaf of the geometry decoder's trunk
+    moved from its start on both sides."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    from hpslam_tpu import renderer as jR
+    from hpslam_tpu.mapper import map_scan as j_map_scan
+    from hpslam_tpu.models import decoder as jDec
+    from hpslam_tpu.ops import optim as jOpt
+    from hpslam_tpu_torch import convert
+
+    x = _map_inputs(rng)
+    jcfg = jDec.ModelConfig(c_dim=8, geo_embed=16, col_embed=8, rel_embed=4,
+                            hidden_geo=16, hidden_col=32, fused_mlp=False,
+                            fused_composite=True)
+    pj = jDec.init_nicer(jax.random.PRNGKey(0), jcfg)
+    params = convert.params_from_numpy(jax.tree.map(np.asarray, pj))
+    key = jax.random.PRNGKey(1)
+    slots = [torch.tensor(np.asarray(jax.random.randint(
+        k, (x["n_rays"],), 0, x["P"])), dtype=torch.int64)
+        for k in jax.random.split(key, x["n_iters"])]
+    names = ("col_fine", "geo_fine")
+    port, ph = _map_phase(x, params, dataclasses.replace(
+        small_cfg(), fused_mlp=False), slots, spec=None, decoders=names)
+    op = {"feat": jnp.asarray(ph["feat"].numpy()),
+          "dec": {d: pj[d] for d in names}}
+    F, H, W = x["F"], x["H"], x["W"]
+    op, _ost, losses = j_map_scan(
+        pj, jcfg, jR.RenderConfig(sample_near_pcl=False), op,
+        jOpt.init(op), key, jnp.asarray(x["colors"]),
+        jnp.asarray(x["depths"]), jnp.tile(jnp.eye(4), (F, 1, 1)),
+        jnp.full((F, H, W), 0.4), jnp.asarray(ph["cp"].numpy()), None,
+        jnp.asarray(ph["uids_c"].numpy()), jnp.zeros((F, 8)),
+        jnp.asarray(ph["pos_c"].numpy()), jnp.int32(ph["U"]),
+        jnp.asarray(np.r_[np.zeros(4, np.int32), np.ones(8, np.int32)]),
+        jnp.asarray(x["lr"]), jnp.int32(F), level="fine",
+        n_rays=x["n_rays"], F_max=F, H=H, W=W, fx=x["fx"], fy=x["fy"],
+        cx=x["cx"], cy=x["cy"], n_iters=x["n_iters"], use_exposure=False,
+        opt_color_dec=True, opt_geo_dec=True, w_color=0.1, use_union=True,
+        cache_packed=jnp.asarray(ph["packed"].numpy()), geo_iters=4)
+    ref = (torch.tensor(np.asarray(losses)),
+           *write_back(x, ph["uniq"], op["feat"]),
+           convert.params_from_numpy(jax.tree.map(np.asarray, op["dec"])))
+    assert np.isfinite(ref[0].numpy()).all() and (ref[0][4:, 1] > 0).all()
+    assert sorted(port[3]) == sorted(names)
+    _check_mesh_equivalence(ref, port, frac=CROSS_IMPL_FRAC)
+    start = params["geo_fine"]["core"]
+    for trained in (port[3]["geo_fine"]["core"], ref[3]["geo_fine"]["core"]):
+        for a, b in zip(tOpt.tree_leaves(trained), tOpt.tree_leaves(start)):
+            assert not torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------

@@ -194,3 +194,33 @@ def test_restore_reference_checkpoint_and_render(tmp_path, rng, capsys):
         assert (d_t[:6, :10] > 0.3).all()
     else:
         assert (d_t[:6, :10] == 0).all()
+
+
+def test_port_continues_a_reference_run(tmp_path):
+    """hpslam_tpu runs the tiny synth_quick config for 6 frames on the CPU
+    and writes its checkpoints; the port resumes the last one (--resume,
+    --device cpu) to frame 9 through its CLI.  tests/test_resume.py's
+    checks: the keyframes carried over, no fewer points, the restored
+    poses equal, the later poses filled, the ATE finite."""
+    from hpslam_tpu.slam import PointSLAM as jPointSLAM
+    from hpslam_tpu_torch.utils.logger import (latest_checkpoint,
+                                               load_checkpoint)
+    out = str(tmp_path / "run")
+    cfg1 = _cfg(tmp_path, 6, 4)
+    cfg1["data"]["output"] = out
+    ref = jPointSLAM(cfg1)
+    ref.run()
+    pts1 = ref.npc.pts_num()
+    kfs1 = [int(k) for k in ref.mapper.keyframe_list]
+    est1 = np.asarray(ref.estimate_c2w_list)
+    assert pts1["fine"] > 0 and kfs1
+    cfg2 = _cfg(tmp_path, 9, 100)
+    results, _summary = _run(tmp_path, cfg2, out, "--resume")
+    state = load_checkpoint(latest_checkpoint(out))
+    assert int(state["idx"]) == 8
+    assert [int(k) for k in state["keyframe_list"][:len(kfs1)]] == kfs1
+    assert all(state["pts_num"][k] >= pts1[k] for k in pts1)
+    est2 = np.asarray(state["estimate_c2w_list"])
+    np.testing.assert_array_equal(est2[:6], est1[:6])
+    assert np.abs(est2[6:9]).sum() > 0 and np.isfinite(est2).all()
+    assert np.isfinite(results["absolute_translational_error.rmse"])

@@ -87,16 +87,28 @@ def trackloss_inputs(rng, n, S, K, C, r=0.3):
     return rays, rowc, cfeat, aff
 
 
-@pytest.mark.parametrize("use_affine,wmode", [(False, 0), (True, 0),
-                                              (False, 1), (True, 1)],
+@pytest.mark.parametrize("use_affine,wmode,bf16",
+                         [(False, 0, False), (True, 0, False),
+                          (False, 1, False), (True, 1, False),
+                          (True, 0, True)],
                          ids=["sigmoid-dist", "affine-dist", "sigmoid-expo",
-                              "affine-expo"])
-def test_trackloss_matches_pallas_reference(rng, use_affine, wmode):
+                              "affine-expo", "bf16"])
+def test_trackloss_matches_pallas_reference(rng, use_affine, wmode, bf16):
+    """bf16: the cached features as model.mm_bf16 hands them over, the
+    same bf16 rows on both sides; both upcast each element as it is read
+    (exact), so the f32 tolerances hold."""
     cfg = small_cfg()
     pj = jDec.init_nicer(jax.random.PRNGKey(8), cfg)
     pt = convert.params_from_numpy(jax.tree.map(np.asarray, pj))
     n, S, K, C = 32, 5, 8, cfg.c_dim
     rays, rowc, cfeat, aff = trackloss_inputs(rng, n, S, K, C)
+    cfeat_j = jnp.asarray(cfeat)
+    cfeat_t = torch.tensor(cfeat)
+    if bf16:
+        cfeat_j = cfeat_j.astype(jnp.bfloat16)
+        cfeat_t = cfeat_t.to(torch.bfloat16)
+        assert np.array_equal(np.asarray(cfeat_j.astype(jnp.float32)),
+                              cfeat_t.float().numpy())
     g_depth = rng.normal(size=(n,)).astype(np.float32)
     g_color = rng.normal(size=(n, 3)).astype(np.float32)
     static = (cfg.n_blocks, cfg.skip, S, K, C, 0.1, wmode, use_affine,
@@ -105,7 +117,7 @@ def test_trackloss_matches_pallas_reference(rng, use_affine, wmode):
 
     def fj(rays_, aff_):
         return jFM.nicer_fused_trackloss(
-            rays_, aff_, jnp.asarray(rowc), jnp.asarray(cfeat),
+            rays_, aff_, jnp.asarray(rowc), cfeat_j,
             tuple(jFM.flatten_core(gd["core"])),
             tuple(jFM.flatten_core(cd["core"])), (gd["B"], cd["B"]), *static)
 
@@ -117,7 +129,7 @@ def test_trackloss_matches_pallas_reference(rng, use_affine, wmode):
     rays_t = torch.tensor(rays, requires_grad=True)
     aff_t = torch.tensor(aff, requires_grad=True)
     d_t, v_t, c_t = tFM.nicer_fused_trackloss(
-        rays_t, aff_t, torch.tensor(rowc), torch.tensor(cfeat),
+        rays_t, aff_t, torch.tensor(rowc), cfeat_t,
         tFM.flatten_core(tg["core"]), tFM.flatten_core(tc["core"]),
         (tg["B"], tc["B"]), *static)
     assert not v_t.requires_grad
@@ -252,7 +264,8 @@ def test_map_scan_fused_trunks_match_maploss_path(rng, expo):
         mcfg = dataclasses.replace(base, fused_mlp=True,
                                    fused_composite=composite)
         op = {"feat": cast(feat.clone()),
-              "dec": tOpt.tree_map(torch.clone, pr["col_fine"])}
+              "dec": {"col_fine": tOpt.tree_map(torch.clone,
+                                                pr["col_fine"])}}
         if expo:
             op["expo_feat"] = cast(expo_stack[F - 1].clone())
         lr = np.tile(np.array([[0.005, 0.03, 0.02, 0.0]], np.float32),
@@ -262,7 +275,8 @@ def test_map_scan_fused_trunks_match_maploss_path(rng, expo):
             torch.Generator().manual_seed(1), cast(depths), cp,
             cast(packed), u, cast(expo_stack), lr, F, "fine", 256, 4, expo,
             True, 0.1)
-        leaves = [op["feat"]] + tFM.flatten_core(op["dec"]["core"])
+        leaves = [op["feat"]] + tFM.flatten_core(
+            op["dec"]["col_fine"]["core"])
         return losses.double().numpy(), [t.double().numpy() for t in leaves]
 
     _, one_ref = run(True, 1)
