@@ -85,6 +85,21 @@ Phases, each printed as one JSON line when it starts and when it ends:
            JPEG decode's ms per file; the plain tracker, union mapping with
            exposure on #3, end correction (its event printed); the
            per-iteration costs tools/preflight.py's estimate scales
+  scannet_scale  the benchmark workload (hpslam_tpu_torch/bench.py) at
+           bench.py's full sizes: 300,000 fine and 60,000 mid points in
+           capacities of 2^19 and 2^17, 460x620, one tracked frame (100
+           iterations x 5000 pixels) and one mapped frame (301 + 299
+           iterations x 10,000 rays over a 20-frame window): per-stage
+           times (each stage ended by a synchronisation), peak memory,
+           launches (#1 and #3 only), #1 bitwise on rows the run produced
+           (a 4096 x 1024 tile-selection chunk, the 40,000 x 40 union
+           ranking) with its times beside torch.topk's, #3 against its
+           plain version on the run's own packed rows, the deterministic
+           scatter beside index_add_, recall@8 of the narrowed tile search
+           within SCALE_RECALL_LOSS_MAX of the exact selection's, finite
+           losses, the rows outside the compacted sets unchanged, the
+           tracked frame repeated bitwise (with --profile: the two frames
+           again under torch.profiler)
   slam_vis the slam run with tracking and mapping panels at frame 5
            (vis_freq 5), the fine level's rendered image and a checkpoint
            at frame 5: the panels and the image decoded to their shapes,
@@ -133,6 +148,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import hashlib
 import json
 import os
@@ -146,8 +162,9 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ["device", "build", "topk", "maploss", "trunks", "trackloss",
           "composite", "slam", "slam_fused", "slam_mesh", "slam_tum",
-          "slam_ba", "slam_bf16", "slam_geo", "slam_scannet", "slam_vis",
-          "resume", "mesh", "telemetry", "loop", "repeat", "kernels"]
+          "slam_ba", "slam_bf16", "slam_geo", "slam_scannet",
+          "scannet_scale", "slam_vis", "resume", "mesh", "telemetry", "loop",
+          "repeat", "kernels"]
 SLAM_PHASES = ["slam", "slam_fused", "slam_mesh", "slam_tum", "slam_ba",
                "slam_bf16", "slam_geo", "slam_scannet"]
 
@@ -348,57 +365,60 @@ def topk_cases(torch, dev):
     return cases
 
 
+def topk_case(name, x, p, k, flush, blocks_per_sm=None) -> dict:
+    """Kernel #1 on one case against topk_rows_plain, bitwise, and its
+    times per launch: the kernel's device time (torch.profiler) with the
+    L2 cache flushed between launches (each row read from device memory,
+    as the path reads a freshly written d2) and warm (back to back: the
+    rows partly in L2); the wrapper's time (host work included, back to
+    back between events); the plain version's and torch.topk's.  The
+    bound's share is taken of the flushed device time."""
+    import torch
+    from hpslam_tpu_torch.ops import knn as K
+    d1, v1 = K.topk_rows(x, p, k)          # the wrapper: CUDA kernel
+    d0, v0 = K.topk_rows_plain(x, p, k)
+    torch.cuda.synchronize()
+    if not (torch.equal(d0, d1) and torch.equal(v0, v1)):
+        bad = int((d0 != d1).sum() + (v0 != v1).sum())
+        raise AssertionError(f"topk {name}: {bad} elements differ")
+
+    def call():
+        return K.topk_rows(x, p, k)
+
+    def device_ms(**kw):
+        return sum(device_ms_per_launch(call, ("topk",), f"topk {name}",
+                                        **kw).values())
+    cold = device_ms(flush=flush)
+    warm = device_ms()
+    ms = cuda_time_ms(call)
+    plain = cuda_time_ms(lambda: K.topk_rows_plain(x, p, k), iters=5)
+    lib = cuda_time_ms(lambda: torch.topk(x, k, dim=1, largest=False))
+    n, C = x.shape
+    # the rows read once, the k selected payload values per row, the
+    # (n, k) values and indices written once
+    nbytes = 4 * n * C + 4 * n * k * (p is not None) + 8 * n * k
+    b, by, tc = bound_ms(nbytes, float(n) * C * k)
+    return {"case": name, "shape": [n, C], "k": k, "ms": cold,
+            "device_ms_warm": warm, "wrapper_ms": ms, "plain_ms": plain,
+            "library_ms": lib, "bound_ms": b, "bound_by": by,
+            "tc_bound_ms": tc, "bound_share": b / cold,
+            "blocks_per_sm": (blocks_per_sm(C, k) if blocks_per_sm
+                              else None),
+            "max_abs_err": float((d0 - d1).abs().max())}
+
+
 def run_topk(results: dict) -> dict:
-    """Kernel #1 against topk_rows_plain, bitwise, at each case of
-    topk_cases.  Times per launch: the kernel's device time
-    (torch.profiler) with the L2 cache flushed between launches (each row
-    read from device memory, as the path reads a freshly written d2) and
-    warm (back to back: the rows partly in L2); the wrapper's time (host
-    work included, back to back between events); the plain version's and
-    torch.topk's.  The bound's share is taken of the flushed device
-    time."""
+    """Kernel #1 at each case of topk_cases (topk_case)."""
     import torch
     from hpslam_tpu_torch import _cuda
-    from hpslam_tpu_torch.ops import knn as K
     dev = torch.device("cuda")
     # absent from trees older than the one-pass kernel (parent runs)
     blocks_per_sm = getattr(_cuda.lib("topk_rows"), "hp_topk_blocks_per_sm",
                             None)
     flush = torch.empty((2 * L2_BYTES // 4,), device=dev)
-    rows = []
-    worst = 0.0
-    for name, x, p, k in topk_cases(torch, dev):
-        d1, v1 = K.topk_rows(x, p, k)          # the wrapper: CUDA kernel
-        d0, v0 = K.topk_rows_plain(x, p, k)
-        torch.cuda.synchronize()
-        if not (torch.equal(d0, d1) and torch.equal(v0, v1)):
-            bad = int((d0 != d1).sum() + (v0 != v1).sum())
-            raise AssertionError(f"topk {name}: {bad} elements differ")
-
-        def call():
-            return K.topk_rows(x, p, k)
-
-        def device_ms(**kw):
-            return sum(device_ms_per_launch(call, ("topk",), f"topk {name}",
-                                            **kw).values())
-        cold = device_ms(flush=flush)
-        warm = device_ms()
-        ms = cuda_time_ms(call)
-        plain = cuda_time_ms(lambda: K.topk_rows_plain(x, p, k), iters=5)
-        lib = cuda_time_ms(lambda: torch.topk(x, k, dim=1, largest=False))
-        n, C = x.shape
-        # the rows read once, the k selected payload values per row, the
-        # (n, k) values and indices written once
-        nbytes = 4 * n * C + 4 * n * k * (p is not None) + 8 * n * k
-        b, by, tc = bound_ms(nbytes, float(n) * C * k)
-        rows.append({"case": name, "shape": [n, C], "k": k, "ms": cold,
-                     "device_ms_warm": warm, "wrapper_ms": ms,
-                     "plain_ms": plain, "library_ms": lib, "bound_ms": b,
-                     "bound_by": by, "tc_bound_ms": tc,
-                     "bound_share": b / cold,
-                     "blocks_per_sm": (blocks_per_sm(C, k) if blocks_per_sm
-                                       else None)})
-        worst = max(worst, float((d0 - d1).abs().max()))
+    rows = [topk_case(name, x, p, k, flush, blocks_per_sm)
+            for name, x, p, k in topk_cases(torch, dev)]
+    worst = max(r.pop("max_abs_err") for r in rows)
     main = rows[0]   # the candidate top-k dominates the path's launches
     results["topk_rows"] = {
         "max_abs_err": worst, "ms": main["ms"],
@@ -510,30 +530,115 @@ def compare_grads(name, k, p, what="maploss"):
     return float(diff.max()), fro
 
 
-def maploss_scratch_bytes(lib, I, with_color, backward, need_wgrads):
-    """Bytes of scratch one launch of kernel #2 or #3 asks for, or None in
-    a tree whose scratch size does not depend on the kernel (before the
-    forward moved onto the tiles)."""
+def maploss_scratch_bytes(lib, a, backward, need_wgrads):
+    """Bytes of scratch one launch of kernel #2 or #3 asks for on the
+    arguments ``a`` (maploss_case), or None in a tree whose scratch size
+    does not depend on the kernel (before the forward moved onto the
+    tiles)."""
     fn = lib.hp_maploss_scratch_floats
     if len(fn.argtypes) != 10:
         return None
-    C, _emb_g, hid_g, emb_c, hid_c = tile_widths(I)
-    return 4 * fn(I["row"].shape[0], I["kw"]["S"], C, hid_g, emb_c, hid_c,
-                  I["kw"]["n_blocks"], int(with_color), int(backward),
+    row, geo, col, Bs = a[3], a[5], a[2], a[6]
+    n_blocks, with_color, S, C = a[7], a[9], a[10], a[12]
+    return 4 * fn(row.shape[0], S, C, geo[0].shape[1], 2 * Bs[1].shape[1],
+                  col[0].shape[1], n_blocks, int(with_color), int(backward),
                   int(need_wgrads))
 
 
+def maploss_case(a: tuple, need_wg: bool, mcfg, what: str = "maploss"):
+    """Kernel #3 through nicer_fused_maploss under autograd, twice (the two
+    must agree bit for bit), against maploss_plain differentiated by
+    autograd, on the arguments ``a`` = (uf, aff, col_core, row, okf,
+    geo_core, Bs, n_blocks, skip, with_color, S, u, C, coef, sigmoid_rgb,
+    use_affine, w_color): the losses to LOSS_RTOL, every cotangent by
+    compare_grads.  Reported: the wrapper's time, the plain version's, the
+    bounds, the device memory and scratch of one bare launch and a digest
+    of its outputs (gl, cl, duf, daff, dcol: copy this smoke into another
+    tree and run it there to compare bit for bit).  Returns (that report,
+    the plain version's losses)."""
+    import torch
+    from hpslam_tpu_torch import _cuda
+    from hpslam_tpu_torch.ops import fused_mlp as FM
+    uf, aff, col, row, okf, geo, Bs = a[:7]
+    with_color, S, u = a[9:12]
+    use_aff, w_color = a[15:17]
+
+    def leaves():
+        return ([uf.clone().requires_grad_(), aff.clone().requires_grad_()]
+                + [w.clone().requires_grad_() for w in col])
+
+    def kernel(ts):
+        return FM.nicer_fused_maploss(ts[0], ts[1], ts[2:], row, okf, geo,
+                                      Bs, *a[7:], need_wgrads=need_wg)
+
+    def plain(ts):
+        return FM.maploss_plain(ts[0], ts[1], ts[2:], row, okf, geo, Bs,
+                                *a[7:16])
+
+    def grads_of(fn):
+        ts = leaves()
+        gl, cl = fn(ts)
+        (gl + w_color * cl if with_color else gl).backward()
+        return [gl.detach(), cl.detach()] + [
+            t.grad if t.grad is not None else torch.zeros_like(t)
+            for t in ts]
+    k1, k2, p = grads_of(kernel), grads_of(kernel), grads_of(plain)
+    torch.cuda.synchronize()
+    n = row.shape[0]
+    if not all(torch.equal(x, y) for x, y in zip(k1, k2)):
+        raise AssertionError(f"{what}: kernel 3 does not repeat bitwise "
+                             f"(n={n})")
+    if not need_wg and any(t.any() for t in k1[4:]):
+        raise AssertionError(f"{what}: colour-core gradients without "
+                             "need_wgrads")
+    worst = 0.0
+    for name, x, y in (("gl", k1[0], p[0]), ("cl", k1[1], p[1])):
+        rel = float((x - y).abs() / max(float(y.abs()), 1e-12))
+        if rel > LOSS_RTOL:
+            raise AssertionError(f"{what} {name}: rel err {rel:.3g}")
+        worst = max(worst, float((x - y).abs()))
+    fro = {}
+    names = ["duf", "daff"] + [f"dcol{i}" for i in range(len(col))]
+    for name, x, y in zip(names, k1[2:], p[2:]):
+        if name == "daff" and not use_aff:
+            continue
+        if name.startswith("dcol") and not (with_color and need_wg):
+            continue
+        mx, fro[name] = compare_grads(name, x, y, what)
+        worst = max(worst, mx)
+    worst_grad = max(fro, key=fro.get)
+    ts = leaves()
+    ms = cuda_time_ms(lambda: kernel(ts), iters=10)
+    plain_ms = cuda_time_ms(lambda: grads_of(plain), iters=5)
+    numel = [sum(t.numel() for t in ws) + Bw.numel()
+             for ws, Bw in ((geo, Bs[0]), (col, Bs[1]))]
+    b, by, tc = bound_ms(*maploss_work(mcfg, n, S, u, with_color, True,
+                                       *numel, need_wgrads=need_wg))
+
+    def bare():
+        return FM.launch_maploss(*a, backward=True, need_wgrads=need_wg)
+    out = bare()
+    return {"n": n, "with_color": with_color, "affine": use_aff,
+            "need_wgrads": need_wg, "max_abs_err": worst,
+            "bitwise_repeat": True, "grad_rel_fro_max": fro[worst_grad],
+            "worst": worst_grad, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b, "bound_by": by, "tc_bound_ms": tc,
+            "bound_share": b / ms,
+            "scratch_bytes": maploss_scratch_bytes(
+                _cuda.lib("maploss"), a, True, need_wg),
+            "memory": launch_memory(bare),
+            "sha256": digest(*out[:4], *out[4])}, (p[0], p[1])
+
+
 def run_maploss(results: dict) -> dict:
-    """Kernel #3 through nicer_fused_maploss under autograd and kernel #2
-    through it without a gradient, against maploss_plain (losses and every
-    cotangent) at eight cases; each kernel's two launches on the same
-    inputs must agree bit for bit.  Reported per case: the wrapper's times
-    beside the plain version's and the bounds; #2's device time per call
-    from the profiler (L2 flushed between calls, and warm), split by pass;
-    the device memory of one bare launch of each kernel (allocator peak
-    less what was allocated before) and the scratch it asks for; a digest
-    of #3's outputs (gl, cl, duf, daff, dcol: copy this smoke into another
-    tree and run its maploss phase there to compare bit for bit)."""
+    """Kernel #3 (maploss_case) and kernel #2 through nicer_fused_maploss
+    without a gradient against maploss_plain's losses at eight cases; #2's
+    two launches on the same inputs must agree bit for bit.  Reported per
+    case beside maploss_case's report: #2's wrapper time beside the plain
+    version's and the bounds; its device time per call from the profiler
+    (L2 flushed between calls, and warm), split by pass; the device memory
+    of one bare launch (allocator peak less what was allocated before) and
+    the scratch it asks for."""
     import torch
     from hpslam_tpu_torch import _cuda
     from hpslam_tpu_torch.ops import fused_mlp as FM
@@ -556,76 +661,28 @@ def run_maploss(results: dict) -> dict:
             (4000, True, True, True), (4000, False, False, True),
             (4001, True, False, True), (4000, True, False, False)):
         I = maploss_inputs(torch, dev, with_color, n=n_rays)
-        kw = dict(I["kw"], with_color=with_color, sigmoid_rgb=not use_aff,
-                  use_affine=use_aff)
-
-        def leaves():
-            return ([I["uf"].clone().requires_grad_(),
-                     I["aff"].clone().requires_grad_()]
-                    + [w.clone().requires_grad_() for w in I["col"]])
-
-        def grads_of(fn, ts):
-            gl, cl = fn(ts[0], ts[1], ts[2:], I["row"], I["okf"], I["geo"],
-                        I["Bs"], **kw)
-            (gl + w_color * cl if with_color else gl).backward()
-            return gl.detach(), cl.detach(), [
-                t.grad if t.grad is not None else torch.zeros_like(t)
-                for t in ts]
-
-        def kernel3(*a, **k):
-            return FM.nicer_fused_maploss(*a, w_color=w_color,
-                                          need_wgrads=need_wg, **k)
-
-        # kernel 3 through the wrapper under autograd, twice (the two must
-        # agree bit for bit); the plain version differentiated by autograd
-        gk, ck, dk = grads_of(kernel3, leaves())
-        gk2, ck2, dk2 = grads_of(kernel3, leaves())
-        gp, cp, dp = grads_of(FM.maploss_plain, leaves())
+        k = I["kw"]
+        a = (I["uf"], I["aff"], I["col"], I["row"], I["okf"], I["geo"],
+             I["Bs"], k["n_blocks"], k["skip"], with_color, k["S"], k["u"],
+             k["C"], k["coef"], not use_aff, use_aff, w_color)
+        bwd, (gp, cp) = maploss_case(a, need_wg, I["mcfg"])
+        worst_bwd = max(worst_bwd, bwd["max_abs_err"])
 
         def kernel_fwd():
             with torch.no_grad():               # kernel 2 through the wrapper
-                return FM.nicer_fused_maploss(
-                    I["uf"], I["aff"], I["col"], I["row"], I["okf"],
-                    I["geo"], I["Bs"], w_color=w_color, **kw)
+                return FM.nicer_fused_maploss(*a)
         g2, c2 = kernel_fwd()
         g2b, c2b = kernel_fwd()
         torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in
-                   zip([gk, ck] + dk, [gk2, ck2] + dk2)):
-            raise AssertionError(f"maploss: kernel 3 does not repeat "
-                                 f"bitwise (n={n_rays})")
         if not (torch.equal(g2, g2b) and torch.equal(c2, c2b)):
             raise AssertionError(f"maploss: kernel 2 does not repeat "
                                  f"bitwise (n={n_rays})")
-        if not need_wg and any(t.any() for t in dk[2:]):
-            raise AssertionError("maploss: colour-core gradients without "
-                                 "need_wgrads")
-        for name, a, b in (("gl", gk, gp), ("cl", ck, cp), ("gl_fwd", g2, gp),
-                           ("cl_fwd", c2, cp)):
-            rel = float((a - b).abs() / max(float(b.abs()), 1e-12))
+        for name, x, y in (("gl_fwd", g2, gp), ("cl_fwd", c2, cp)):
+            rel = float((x - y).abs() / max(float(y.abs()), 1e-12))
             if rel > LOSS_RTOL:
                 raise AssertionError(f"maploss {name}: rel err {rel:.3g}")
-            e = float((a - b).abs())
-            if name.endswith("_fwd"):
-                worst_fwd = max(worst_fwd, e)
-            else:
-                worst_bwd = max(worst_bwd, e)
-        names = ["duf", "daff"] + [f"dcol{i}" for i in range(len(I["col"]))]
-        stats = {}
-        for name, a, b in zip(names, dk, dp):
-            if name == "daff" and not use_aff:
-                continue
-            if name.startswith("dcol") and not (with_color and need_wg):
-                continue
-            mx, fro = compare_grads(name, a, b)
-            worst_bwd = max(worst_bwd, mx)
-            stats[name] = fro
-        n, S, u = I["row"].shape[0], kw["S"], kw["u"]
-        ts = leaves()
-        t3 = cuda_time_ms(lambda: FM.nicer_fused_maploss(
-            ts[0], ts[1], ts[2:], I["row"], I["okf"], I["geo"], I["Bs"],
-            w_color=w_color, need_wgrads=need_wg, **kw), iters=10)
-
+            worst_fwd = max(worst_fwd, float((x - y).abs()))
+        n, S, u = I["row"].shape[0], k["S"], k["u"]
         t2 = cuda_time_ms(kernel_fwd, iters=10)
         passes = ("ml_", "loss_reduce")
         pass2 = device_ms_per_launch(kernel_fwd, passes, f"maploss #2 n={n}",
@@ -633,26 +690,12 @@ def run_maploss(results: dict) -> dict:
         pass2_warm = device_ms_per_launch(kernel_fwd, passes,
                                           f"maploss #2 n={n}")
 
-        def bare(backward):
-            return lambda: FM.launch_maploss(
-                I["uf"], I["aff"], I["col"], I["row"], I["okf"], I["geo"],
-                I["Bs"], w_color=w_color, backward=backward,
-                need_wgrads=need_wg and backward, **kw)
-        out3 = bare(True)()
-        sha3 = digest(*out3[:4], *out3[4])
-        pts_ = leaves()
-        tp3 = cuda_time_ms(lambda: grads_of(FM.maploss_plain, pts_), iters=5)
-
         def plain_fwd():
             with torch.no_grad():
-                return FM.maploss_plain(I["uf"], I["aff"], I["col"],
-                                        I["row"], I["okf"], I["geo"],
-                                        I["Bs"], **kw)
+                return FM.maploss_plain(*a[:16])
         tp2 = cuda_time_ms(plain_fwd, iters=5)
-        numel = [sum(t.numel() for t in I[k]) + I["Bs"][i].numel()
-                 for i, k in enumerate(("geo", "col"))]
-        b3 = bound_ms(*maploss_work(I["mcfg"], n, S, u, with_color, True,
-                                    *numel, need_wgrads=need_wg))
+        numel = [sum(t.numel() for t in I[key]) + I["Bs"][i].numel()
+                 for i, key in enumerate(("geo", "col"))]
         b2 = bound_ms(*maploss_work(I["mcfg"], n, S, u, with_color, False,
                                     *numel))
         cases.append({"with_color": with_color, "affine": use_aff, "n": n,
@@ -662,22 +705,23 @@ def run_maploss(results: dict) -> dict:
                       "fwd_pass_ms": pass2, "fwd_wrapper_ms": t2,
                       "fwd_plain_ms": tp2, "fwd_bound_ms": b2[0],
                       "fwd_tc_bound_ms": b2[2],
-                      "fwd_memory": launch_memory(bare(False)),
+                      "fwd_memory": launch_memory(lambda: FM.launch_maploss(
+                          *a, backward=False, need_wgrads=False)),
                       "fwd_scratch_bytes": maploss_scratch_bytes(
-                          lib, I, with_color, False, False),
-                      "bwd_memory": launch_memory(bare(True)),
-                      "bwd_scratch_bytes": maploss_scratch_bytes(
-                          lib, I, with_color, True, need_wg),
-                      "bwd_sha256": sha3,
-                      "bwd_ms": t3, "bwd_plain_ms": tp3,
-                      "bwd_bound_ms": b3[0], "bwd_tc_bound_ms": b3[2],
-                      "bound_by": b3[1], "bitwise_repeat": True,
-                      "grad_rel_fro_max": max(stats.values()),
-                      "worst": max(stats, key=stats.get)})
+                          lib, a, False, False),
+                      "bwd_memory": bwd["memory"],
+                      "bwd_scratch_bytes": bwd["scratch_bytes"],
+                      "bwd_sha256": bwd["sha256"],
+                      "bwd_ms": bwd["ms"], "bwd_plain_ms": bwd["plain_ms"],
+                      "bwd_bound_ms": bwd["bound_ms"],
+                      "bwd_tc_bound_ms": bwd["tc_bound_ms"],
+                      "bound_by": bwd["bound_by"], "bitwise_repeat": True,
+                      "grad_rel_fro_max": bwd["grad_rel_fro_max"],
+                      "worst": bwd["worst"]})
         if n == 4000 and with_color and not use_aff and need_wg:
-            timing = {"fwd": (t2, tp2, b2), "bwd": (t3, tp3, b3),
+            timing = {"fwd": (t2, tp2, b2), "bwd": bwd,
                       "fwd_device": cases[-1]}
-    fwd_case = timing["fwd_device"]
+    fwd_case, bwd = timing["fwd_device"], timing["bwd"]
     results["maploss_fwd"] = {
         "max_abs_err": worst_fwd, "ms": fwd_case["fwd_device_ms"],
         "device_ms_warm": fwd_case["fwd_device_ms_warm"],
@@ -686,10 +730,10 @@ def run_maploss(results: dict) -> dict:
         "bound_by": timing["fwd"][2][1],
         "tc_bound_ms": timing["fwd"][2][2], "library_ms": None}
     results["maploss_bwd"] = {
-        "max_abs_err": worst_bwd, "ms": timing["bwd"][0],
-        "plain_ms": timing["bwd"][1], "bound_ms": timing["bwd"][2][0],
-        "bound_by": timing["bwd"][2][1],
-        "tc_bound_ms": timing["bwd"][2][2], "library_ms": None}
+        "max_abs_err": worst_bwd, "ms": bwd["ms"],
+        "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound_ms"],
+        "bound_by": bwd["bound_by"], "tc_bound_ms": bwd["tc_bound_ms"],
+        "library_ms": None}
     _cuda.reset_launches()
     return {"tolerance": {"loss_rtol": LOSS_RTOL,
                           "grad_rel_fro": GRAD_REL_FRO,
@@ -1559,6 +1603,9 @@ PROFILE_KERNELS = {
     "slam_scannet": (("topk_rows_lists", "ml_bwd_tiles"),
                      ("tl_fwd_tiles", "tl_bwd_tiles", "cp_fwd_tiles",
                       "cp_bwd_tiles", "tr_bwd_tiles")),
+    "scannet_scale": (("topk_rows_lists", "ml_bwd_tiles"),
+                      ("tl_fwd_tiles", "tl_bwd_tiles", "cp_fwd_tiles",
+                       "cp_bwd_tiles", "tr_fwd_tiles", "tr_bwd_tiles")),
     "slam_mesh": (("cp_fwd_tiles", "cp_rays"), ("cp_samples",)),
     "slam_tum": (("topk_rows_lists",),
                  ("ml_fwd_tiles", "ml_bwd_tiles", "tr_fwd_tiles",
@@ -2425,6 +2472,260 @@ def run_quality(out_dir: str) -> dict:
             "synth_loop": loop}
 
 
+# scannet_scale: the benchmark workload (hpslam_tpu_torch/bench.py) at
+# bench.py's full sizes; the tile-index narrowing may cost at most this
+# much recall@8 against the exact tile selection on the same queries
+SCALE_RECALL_LOSS_MAX = 0.01
+SCALE_RECALL_QUERIES = 4096
+
+
+@contextlib.contextmanager
+def tapped(module, name: str, before=None, after=None):
+    """``module.name`` wrapped for the block: ``before(*args, **kw)`` ahead
+    of each call, ``after(result, *args, **kw)`` behind it."""
+    fn = getattr(module, name)
+
+    def wrapper(*a, **kw):
+        if before is not None:
+            before(*a, **kw)
+        out = fn(*a, **kw)
+        if after is not None:
+            after(out, *a, **kw)
+        return out
+    setattr(module, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def recall_at(I, Io, Do) -> float:
+    """Share of the exact neighbours (ids Io, distances Do, BIG where
+    missing) that the search found (ids I)."""
+    from hpslam_tpu_torch.ops import knn as K
+    valid = Do < K.BIG
+    hit = (Io[:, :, None] == I[:, None, :]).any(-1) & valid
+    return float(hit.sum()) / max(int(valid.sum()), 1)
+
+
+def run_scannet_scale(out_dir: str, profile: bool = False) -> dict:
+    """One tracked and one mapped frame of the benchmark workload
+    (hpslam_tpu_torch/bench.py) at bench.py's full sizes: per-stage times
+    (each stage ended by a synchronisation), peak memory, launches (#1 and
+    #3 only), #1 bitwise on rows the run produced (a tile-selection chunk
+    of the fine level and the union ranking), #3 against its plain version
+    on the run's own packed rows (a geometry and a colour iteration),
+    recall@8 of the narrowed tile search against the exact one, finite
+    losses, rows outside the compacted sets unchanged, the tracked frame
+    repeated bitwise."""
+    import torch
+    from hpslam_tpu_torch import _cuda
+    from hpslam_tpu_torch import bench as B
+    from hpslam_tpu_torch.ops import fused_mlp as FM
+    from hpslam_tpu_torch.ops import knn as K
+    dev = torch.device("cuda")
+    s = B.Sizes()
+    t0 = time.perf_counter()
+    w = B.make_workload(s, dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    # the tile index of each level, twice (the first call warms up)
+    tiles_ms = {}
+    for _ in range(2):
+        for lv in B.LEVELS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            w.indexes[lv] = K.build_tiles(*w.levels[lv][:2])
+            torch.cuda.synchronize()
+            tiles_ms[lv] = (time.perf_counter() - t0) * 1e3
+    T = {lv: w.indexes[lv][1].shape[1] for lv in B.LEVELS}
+    nb_fine = T["fine"] // K.NARROW_FACTOR
+    n_union = s.window * s.P
+    cap: dict = {}
+
+    def take_topk(x, p, k):
+        key = ("tile_select" if tuple(x.shape) == (4096, nb_fine) and k == 12
+               else "union_rank" if tuple(x.shape) == (n_union, 5 * 8)
+               and k == 8 else None)
+        if key and key not in cap:
+            cap[key] = (x.clone(), None if p is None else p.clone(), k)
+
+    knn_ms: list = []
+    clock = {}
+
+    def knn_start(*a, **kw):
+        torch.cuda.synchronize()
+        clock["t"] = time.perf_counter()
+
+    def knn_end(*a, **kw):
+        torch.cuda.synchronize()
+        knn_ms.append((time.perf_counter() - clock["t"]) * 1e3)
+
+    def take_queries(q, packed, lo, hi, **kw):
+        if lo.shape[1] == T["fine"] and "queries" not in cap:
+            cap["queries"] = q[:SCALE_RECALL_QUERIES].clone()
+
+    def take_maploss(*a, need_wgrads=True):
+        key = "maploss_colour" if a[9] else "maploss_geometry"
+        if key not in cap:
+            cap[key] = (tuple(t.detach().clone() if torch.is_tensor(t)
+                              else [x.detach().clone() for x in t]
+                              if isinstance(t, (list, tuple)) else t
+                              for t in a), need_wgrads)
+
+    # the main path: one tracked frame, then one mapped frame
+    _cuda.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with tapped(K, "topk_rows", before=take_topk), \
+            tapped(K, "knn_tiles", before=knn_start, after=knn_end):
+        cam, best, track_losses, _ = B.run_track(w, torch.Generator(
+            device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    track_s = time.perf_counter() - t0
+    track_peak = torch.cuda.max_memory_allocated()
+    track_launches = dict(_cuda.LAUNCHES)
+    # the tracked frame again on the same state (warm, no synchronisation
+    # inside): the same bits
+    t0 = time.perf_counter()
+    again = B.run_track(w, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    repeat_s = time.perf_counter() - t0
+    if not all(torch.equal(x, y) for x, y in
+               zip((cam, best, track_losses), again[:3])):
+        raise AssertionError("scannet_scale: the tracked frame does not "
+                             "repeat bitwise")
+    del again
+    before = {lv: (w.levels[lv][2].clone(), w.levels[lv][3].clone())
+              for lv in B.LEVELS}
+    _cuda.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    times: dict = {}
+    t0 = time.perf_counter()
+    with tapped(K, "topk_rows", before=take_topk), \
+            tapped(K, "knn_tiles", before=take_queries), \
+            tapped(FM, "nicer_fused_maploss", before=take_maploss):
+        mapped = B.run_map(w, torch.Generator(device=dev).manual_seed(1),
+                           times)
+    torch.cuda.synchronize()
+    map_s = time.perf_counter() - t0
+    map_peak = torch.cuda.max_memory_allocated()
+    map_launches = dict(_cuda.LAUNCHES)
+    launches = {k: track_launches.get(k, 0) + map_launches.get(k, 0)
+                for k, _src, _rep in KERNELS}
+    for k, v in launches.items():
+        if (v > 0) != (k in ("topk_rows", "maploss_bwd")):
+            raise AssertionError(f"scannet_scale: kernel {k} launched {v} "
+                                 "times")
+    if track_launches.get("maploss_bwd", 0):
+        raise AssertionError("scannet_scale: #3 launched by the tracker")
+
+    # finite losses; the rows outside each compacted set keep their bits
+    if not bool(torch.isfinite(track_losses).all()):
+        raise AssertionError("scannet_scale: tracking losses not finite")
+    for lv, m in mapped.items():
+        if not bool(torch.isfinite(m["losses"]).all()):
+            raise AssertionError(f"scannet_scale: {lv} losses not finite")
+        outside = torch.ones(w.levels[lv][0].shape[0], dtype=torch.bool,
+                             device=dev)
+        uniq = m["uniq"]
+        outside[uniq[uniq < outside.numel()]] = False
+        for old, new in zip(before[lv], w.levels[lv][2:]):
+            if not torch.equal(old[outside], new[outside]):
+                raise AssertionError(f"scannet_scale: {lv} rows outside "
+                                     "the compacted set changed")
+    del before
+
+    # #1 bitwise on the run's own rows, with its times beside torch.topk's
+    flush = torch.empty((2 * L2_BYTES // 4,), device=dev)
+    blocks = getattr(_cuda.lib("topk_rows"), "hp_topk_blocks_per_sm", None)
+    topk = [topk_case(key, *cap[key], flush, blocks)
+            for key in ("tile_select", "union_rank")]
+    del flush
+    # #3 against its plain version on the run's own rows
+    maploss = {key: maploss_case(*cap[key], w.mcfg, "scannet_scale #3")[0]
+               for key in ("maploss_geometry", "maploss_colour")}
+    # the deterministic scatter of the feature-row gather's backward at
+    # the colour iteration's ids, beside index_add_ (float atomics)
+    from hpslam_tpu_torch.ops import interpolate as IT
+    a = cap["maploss_colour"][0]
+    o = FM.row_offsets(a[10], a[11])
+    ids = K.unpack_ids(a[3][:, o["uids"]:o["uids"] + a[11]]).reshape(-1)
+    rows_U = int(mapped["mid"]["uniq"].numel())
+    src = torch.randn((ids.numel(), 2 * a[12]), device=dev)
+    scatter = {"rows": rows_U, "sources": ids.numel(),
+               "ms": cuda_time_ms(lambda: IT.index_add_rows(rows_U, ids,
+                                                            src)),
+               "index_add_ms": cuda_time_ms(lambda: torch.zeros(
+                   (rows_U, src.shape[1]), device=dev).index_add_(
+                       0, ids, src))}
+    # recall@8 of the fine level's search, narrowed and exact selection
+    q = cap["queries"]
+    pos, count = w.levels["fine"][:2]
+    Do, Io = K.knn(q, pos, count, k=8)
+    _, In = K.knn_tiles(q, *w.indexes["fine"], k=8, probe=12)
+    narrow_min = K.NARROW_MIN_TILES
+    K.NARROW_MIN_TILES = T["fine"] + 1
+    try:
+        _, Ie = K.knn_tiles(q, *w.indexes["fine"], k=8, probe=12)
+    finally:
+        K.NARROW_MIN_TILES = narrow_min
+    recall = {"queries": int(q.shape[0]), "tiles": T["fine"],
+              "narrowed": recall_at(In, Io, Do),
+              "exact_selection": recall_at(Ie, Io, Do)}
+    if recall["narrowed"] < recall["exact_selection"] \
+            - SCALE_RECALL_LOSS_MAX:
+        raise AssertionError(f"scannet_scale: recall@8 {recall}")
+
+    stage_ids = {lv: w.schedules[lv][0] for lv in B.LEVELS}
+    out = {
+        "sizes": dict(dataclasses.asdict(s), tiles=T,
+                      map_iters={lv: int(v.size)
+                                 for lv, v in stage_ids.items()},
+                      geo_iters={lv: int((v == 0).sum())
+                                 for lv, v in stage_ids.items()},
+                      compacted_rows={lv: int(m["uniq"].numel())
+                                      for lv, m in mapped.items()}),
+        "setup_s": setup_s, "tile_build_ms": tiles_ms,
+        "track": {"ms": track_s * 1e3, "knn_ms": knn_ms,
+                  "steps_ms": track_s * 1e3 - sum(knn_ms),
+                  "repeat_ms": repeat_s * 1e3, "peak_bytes": track_peak,
+                  "launches": track_launches,
+                  "loss_first_last": [float(track_losses[0]),
+                                      float(track_losses[-1])]},
+        "map": {"ms": map_s * 1e3,
+                "stage_ms": {k: v * 1e3 for k, v in times.items()},
+                "map_scan_ms_per_iter": {
+                    lv: times[f"{lv}_map_scan"] * 1e3 / stage_ids[lv].size
+                    for lv in B.LEVELS},
+                "peak_bytes": map_peak, "launches": map_launches,
+                "losses_last": {lv: m["losses"][-1].tolist()
+                                for lv, m in mapped.items()}},
+        "launches": launches, "topk": topk, "maploss": maploss,
+        "scatter": scatter, "recall": recall,
+        "tolerance": {"topk": TOPK_TOL, "loss_rtol": LOSS_RTOL,
+                      "grad_rel_fro": GRAD_REL_FRO,
+                      "grad_elem": [GRAD_ELEM_TOL, GRAD_ELEM_FRAC],
+                      "recall_loss_max": SCALE_RECALL_LOSS_MAX}}
+    if profile:
+        def once():
+            t0 = time.perf_counter()
+            B.run_track(w, torch.Generator(device=dev).manual_seed(0))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            B.run_map(w, torch.Generator(device=dev).manual_seed(1))
+            torch.cuda.synchronize()
+            return {"track_ms_mean": (t1 - t0) * 1e3,
+                    "map_ms_mean": (time.perf_counter() - t1) * 1e3}
+        out["profile"] = profile_run(once, "scannet_scale")
+    with open(os.path.join(out_dir, "scannet_scale_summary.json"), "w") as f:
+        json.dump(out, f, indent=1, default=str)
+    del w, cap, mapped
+    torch.cuda.empty_cache()
+    return out
+
+
 KERNELS = [
     ("topk_rows", "hpslam_tpu_torch/csrc/topk_rows.cu",
      "hpslam_tpu/ops/knn.py:235"),
@@ -2511,6 +2812,13 @@ def main(argv=None) -> int:
                     if not launches.get(k):
                         launches[k] = v
                 emit(s)
+    if "scannet_scale" in phases:
+        with phase("scannet_scale", seconds):
+            scale = run_scannet_scale(out_dir, args.profile)
+            for k, v in scale["launches"].items():
+                if not launches.get(k):
+                    launches[k] = v
+            emit({"scannet_scale": scale})
     vis = None
     served = {}
     try:

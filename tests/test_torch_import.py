@@ -30,12 +30,14 @@ def test_import_pulls_in_neither_jax_nor_reference():
     mods = _port_modules()
     # the multi-device modules are among those imported
     assert {"hpslam_tpu_torch.parallel", "hpslam_tpu_torch.parallel.mesh",
-            "hpslam_tpu_torch.parallel.knn_tp"} <= set(mods)
+            "hpslam_tpu_torch.parallel.knn_tp",
+            "hpslam_tpu_torch.bench"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
-            "'jax.') or m == 'hpslam_tpu' or m.startswith('hpslam_tpu.')]\n"
+            "'jax.') or m == 'hpslam_tpu' or m.startswith('hpslam_tpu.') "
+            "or m == 'bench']\n"
             "assert not bad, bad\n"
             "print('ok')\n")
     env = dict(os.environ)
@@ -157,6 +159,7 @@ def test_no_plotting_or_imaging_library():
 
 
 def test_entry_points_refuse_cpu_drift(monkeypatch):
+    from hpslam_tpu_torch import bench
     from hpslam_tpu_torch.device import resolve_device
     from hpslam_tpu_torch.ops import fused_mlp, knn
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -165,6 +168,11 @@ def test_entry_points_refuse_cpu_drift(monkeypatch):
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
     assert resolve_device("cpu").type == "cpu"
+    # the benchmark's entry point: CUDA unless --device cpu is given
+    with pytest.raises(RuntimeError):
+        bench.main([])
+    with pytest.raises(RuntimeError):
+        bench.main(["--device", "cuda", "--H", "8", "--W", "8"])
     # a wrapper given a tensor neither on the CPU nor on CUDA raises
     x = torch.zeros((4, 8), device="meta")
     with pytest.raises(ValueError):
