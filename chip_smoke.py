@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases device,build,trunks,trackloss
     python3 chip_smoke.py --phases device,build,band      # ATE band, ~7 min
     python3 chip_smoke.py --phases device,build,quality   # repro_quality.sh
+                                                          # at seeds 0-2
 
 Phases, each printed as one JSON line when it starts and when it ends:
   device   nvidia-smi's name and power limit, torch's device name
@@ -50,7 +51,11 @@ Phases, each printed as one JSON line when it starts and when it ends:
            #6 and one #7 launch
   slam     the port's CLI entry point on configs/Synthetic/synth_tpu.yaml,
            cut to 10 frames, output in a temporary directory; ATE, per-frame
-           times and every kernel's launches during the run (with
+           times and every kernel's launches during the run; the run's
+           metrics.jsonl must carry the loss curves (loss_curve with each
+           track record, geo_loss_curve and color_loss_curve with each map
+           record) and its eval_ate_aligned.png must decode with both
+           trajectories drawn, as for every SLAM run below (with
            --profile each SLAM run is repeated under torch.profiler, whose
            kernels must include, and exclude, those of PROFILE_KERNELS)
   slam_fused  the same run with tracking.fused_loss on and
@@ -118,6 +123,21 @@ Phases, each printed as one JSON line when it starts and when it ends:
   telemetry  slam_vis's plots/summary.png (the run summary that every run
            ends with) decodes at its canvas size with line pixels in all
            four panels
+  points   renderer.eval_points (the mesher's query) on slam_vis's final
+           checkpoint at 200,000 points of the room's box (a grid of
+           POINTS_GRID cells, each point jittered in its cell from a
+           seed), both levels: through each level's tile index (#1,
+           launches counted, nothing else launched; #1 bitwise against its
+           plain version on the rows it was given there, with its times),
+           then through knn_auto (at these capacities the approximate
+           segment-min search, m=8); ops.knn.find_neighbors (the exact
+           search) at the query radius, its counts neighbor_counts'; per
+           level every point that the tile route or the exact search finds
+           neighbours for has the exact search's neighbours within the
+           radius through the tile index, the tile route's mask is the
+           exact one, and where the segment-min route also has them the
+           masks are equal and occupancy and colour within LOSS_RTOL; each
+           route's ms
   loop     configs/Synthetic/synth_loop.yaml, all 60 frames, iterations
            cut (LOOP_CUTS): the end correction is applied and lowers the
            ATE of the same trajectory (its last checkpoint) evaluated
@@ -134,11 +154,12 @@ Phases, each printed as one JSON line when it starts and when it ends:
   band     (only when named in --phases) synth_tpu.yaml and
            synth_noisy.yaml for all 30 frames at seeds 0, 1, 2 on the slam
            and slam_fused paths: each ATE beside the reference's band
-  quality  (only when named in --phases) repro_quality.sh on the port:
-           synth_quality.yaml's 120 frames, its mesh at voxel 5/512 m
-           against the culled GT box (accuracy, completion, F-score), then
-           synth_loop.yaml uncut with its end correction; beside the
-           reference's numbers (TPU history)
+  quality  (only when named in --phases) repro_quality.sh on the port
+           at seeds 0, 1, 2 (QUALITY_SEEDS): synth_quality.yaml's 120
+           frames, its mesh at voxel 5/512 m against the culled GT box
+           (accuracy, completion, F-score), then synth_loop.yaml uncut with
+           its ATE before and after the end correction; beside the
+           reference's numbers (TPU history, one seed)
 
 The last line is {"ok": true, "device": {...}}, printed only when every
 phase passed; any failure exits non-zero.  Without CUDA, or without the
@@ -163,8 +184,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ["device", "build", "topk", "maploss", "trunks", "trackloss",
           "composite", "slam", "slam_fused", "slam_mesh", "slam_tum",
           "slam_ba", "slam_bf16", "slam_geo", "slam_scannet",
-          "scannet_scale", "slam_vis", "resume", "mesh", "telemetry", "loop",
-          "repeat", "kernels"]
+          "scannet_scale", "slam_vis", "resume", "mesh", "telemetry",
+          "points", "loop", "repeat", "kernels"]
 SLAM_PHASES = ["slam", "slam_fused", "slam_mesh", "slam_tum", "slam_ba",
                "slam_bf16", "slam_geo", "slam_scannet"]
 
@@ -1709,6 +1730,7 @@ QUALITY_REFERENCE = {"synth_quality": {"ate_cm": 1.35, "accuracy_cm": 0.96,
                                        "fscore": 0.458},
                      "synth_loop": {"ate_cm_end_correction_on": 21.75,
                                     "ate_cm_end_correction_off": 39.52}}
+QUALITY_SEEDS = (0, 1, 2)
 FUSED = {"tracking": {"fused_loss": True},
          "model": {"fused_composite": False}}
 # slam_bf16: model.mm_bf16 (the tracker's bf16 feature table into #8-9)
@@ -2098,7 +2120,7 @@ def run_slam(out_dir: str, name: str = "slam", profile: bool = False,
         state = load_checkpoint(latest_checkpoint(os.path.join(work,
                                                                "out")))
         traj = state["estimate_c2w_list"]
-        extra = {}
+        extra = {"products": run_products(os.path.join(work, "out"))}
         if name == "slam_geo":
             extra["geo_decoders"] = geo_decoder_changes(cfg_path, state)
         elif name == "slam_scannet":
@@ -2207,6 +2229,37 @@ def run_repeat(out_dir: str, first: dict, served=None) -> dict:
         emit({"repeat": out})
         raise AssertionError(f"runs do not repeat: {bad}")
     return out
+
+
+def run_products(out: str) -> dict:
+    """A finished run's records carry the loss curves (every track record
+    a finite loss_curve, every map record finite geo_loss_curve and
+    color_loss_curve of one length), and the run wrote
+    eval_ate_aligned.png, which decodes at the figure's size with the
+    aligned estimate drawn in blue beside the ground truth in black."""
+    import numpy as np
+    from hpslam_tpu_torch.tools import eval_ate as EA
+    from hpslam_tpu_torch.utils import image_io as IO
+    tracks, maps = read_events(out, "track"), read_events(out, "map")
+    curves_ok = bool(tracks and maps) and all(
+        r.get("loss_curve") and np.isfinite(r["loss_curve"]).all()
+        for r in tracks) and all(
+        r.get("geo_loss_curve") and len(r["geo_loss_curve"])
+        == len(r.get("color_loss_curve") or ())
+        and np.isfinite(r["geo_loss_curve"] + r["color_loss_curve"]).all()
+        for r in maps)
+    img = IO.read_png(os.path.join(out, "eval_ate_aligned.png"))
+    drawn = {name: int((img == np.array(c, np.uint8)).all(-1).sum())
+             for name, c in (("gt_pixels", EA.GT_COLOR),
+                             ("estimate_pixels", EA.EST_COLOR))}
+    rec = {"track_curves": len(tracks), "map_curves": len(maps),
+           "loss_curve_len": len(tracks[-1]["loss_curve"]) if tracks else 0,
+           "eval_ate_aligned_png": list(img.shape), **drawn}
+    if not (curves_ok and img.shape == EA.PLOT_HW + (3,)
+            and drawn["estimate_pixels"] > 0
+            and sum(drawn.values()) > 100):
+        raise AssertionError(f"run products: {rec}")
+    return rec
 
 
 def read_events(out: str, event: str) -> list:
@@ -2357,6 +2410,195 @@ def run_telemetry(vis: dict) -> dict:
     return out
 
 
+# points: the mesher's query (renderer.eval_points) on slam_vis's final
+# checkpoint at 200,000 points of the synthetic room's box, on a grid of
+# POINTS_GRID cells, each point jittered within its cell (a generator seeded
+# with POINTS_SEED)
+POINTS_GRID = (50, 50, 80)
+POINTS_SEED = 0
+
+
+def points_grid(torch, dev, half: float):
+    """POINTS_GRID cells over the box [-half, half]^3, one point in each,
+    uniform within its cell: (n, 3) float32 on ``dev``."""
+    g = torch.Generator(device=dev).manual_seed(POINTS_SEED)
+    axes = [((torch.arange(n, device=dev) + 0.5) / n * 2 - 1) * half
+            for n in POINTS_GRID]
+    cell = torch.tensor([2 * half / n for n in POINTS_GRID], device=dev)
+    p = torch.stack(torch.meshgrid(*axes, indexing="ij"), -1).reshape(-1, 3)
+    return (p + (torch.rand(p.shape, generator=g, device=dev) - 0.5)
+            * cell).contiguous()
+
+
+def within_radius_ids(D, I, r2):
+    """Each row's neighbour ids within the radius, sorted, -1 elsewhere."""
+    import torch
+    return torch.sort(torch.where(D < r2, I, torch.full_like(I, -1)),
+                      dim=1).values
+
+
+def run_points(vis: dict) -> dict:
+    """renderer.eval_points, the mesher's query, on slam_vis's final
+    checkpoint (synth_tpu.yaml's full-width decoders) at POINTS_GRID's
+    200,000 points of the room's box, through both levels: first with each
+    level's tile index (#1's route, the launches counted), then without
+    (knn_auto: at these capacities, above knn._EXACT_MAX_N, the
+    approximate segment-min search).  #1 bitwise against its plain version
+    on the rows the tile route gave it.  Per level ops.knn.find_neighbors,
+    the exact search, at the query radius: its counts neighbor_counts'
+    over its D; every point that the tile route or the exact search finds
+    neighbours for has the exact neighbours within the radius through the
+    tile index, and the tile route's mask is the exact one; on the points
+    where the segment-min route has them too, masks equal and occupancy
+    and colour within LOSS_RTOL.  The routes' ms."""
+    import numpy as np
+    import torch
+    from hpslam_tpu_torch import _cuda
+    from hpslam_tpu_torch import config as C
+    from hpslam_tpu_torch import renderer as R
+    from hpslam_tpu_torch import state as St
+    from hpslam_tpu_torch.convert import params_from_numpy
+    from hpslam_tpu_torch.models import decoder as Dec
+    from hpslam_tpu_torch.ops import knn as K
+    from hpslam_tpu_torch.utils.datasets import Synthetic
+    from hpslam_tpu_torch.utils.logger import (latest_checkpoint,
+                                               load_checkpoint)
+    dev = torch.device("cuda")
+    cfg = C.load_config(os.path.join(vis["work"], "smoke.yaml"),
+                        C.default_config_path())
+    ck = latest_checkpoint(os.path.join(vis["work"], "out"))
+    state = load_checkpoint(ck)
+    npc = St.NeuralPointCloud(cfg, dev)
+    for name, lv in state["levels"].items():
+        npc.restore_level(name, lv["pos"], lv["normal"], lv["geo"],
+                          lv["col"], int(lv.get("capacity", 0)))
+    params = params_from_numpy(state["decoder_params"], dev)
+    mcfg = Dec.ModelConfig.from_cfg(cfg)
+    expo = (torch.as_tensor(np.asarray(state["exposure_feat"], np.float32),
+                            device=dev) if mcfg.encode_exposure else None)
+    p = points_grid(torch, dev, Synthetic.HALF)
+    rq = float(cfg["pointcloud"]["radius_query"])
+    r_query = torch.full((p.shape[0],), rq, device=dev)
+    levels = list(npc.levels)
+    indexes = {lv: npc.index(lv) for lv in levels}
+    torch.cuda.synchronize()
+
+    def route(lv, tiles: bool):
+        c = npc.levels[lv]
+        with torch.no_grad():
+            return R.eval_points(params, mcfg, p, c.pos, c.count, c.geo,
+                                 c.col, r_query, nn_num=npc.nn_num,
+                                 level=lv, exposure_feat=expo,
+                                 tile_index=indexes[lv] if tiles else None)
+
+    cur = {}
+    cap: dict = {}
+    knn: dict = {}
+
+    def take_topk(x, pl, k):
+        key = f"{cur['lv']} {x.shape[1]} k={k}"
+        if key not in cap:
+            cap[key] = (x.clone(), None if pl is None else pl.clone(), k)
+
+    def take_knn(out, *a, **kw):
+        knn[(cur["route"], cur["lv"])] = out
+
+    out: dict = {"points": int(p.shape[0]), "grid": list(POINTS_GRID),
+                 "r_query": rq, "checkpoint": os.path.basename(ck),
+                 "levels": {}, "ms": {}}
+    res = {}
+    for name, tiles, fn in (("tiles", True, "knn_tiles"),
+                            ("knn_auto", False, "knn_auto")):
+        cur["route"] = name
+        if tiles:
+            _cuda.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with tapped(K, "topk_rows", before=take_topk if tiles else None), \
+                tapped(K, fn, after=take_knn):
+            for lv in levels:
+                cur["lv"] = lv
+                res[(name, lv)] = route(lv, tiles)
+        torch.cuda.synchronize()
+        out["ms"][name] = (time.perf_counter() - t0) * 1e3
+        if tiles:
+            launches = dict(_cuda.LAUNCHES)
+    for k, v in launches.items():
+        if (v > 0) != (k == "topk_rows"):
+            raise AssertionError(f"points: kernel {k} launched {v} times "
+                                 "on the tile route")
+    if not launches.get("topk_rows"):
+        raise AssertionError("points: #1 not launched on the tile route")
+    out["launches"] = launches
+
+    flush = torch.empty((2 * L2_BYTES // 4,), device=dev)
+    blocks = getattr(_cuda.lib("topk_rows"), "hp_topk_blocks_per_sm", None)
+    out["topk"] = [topk_case(key, *cap[key], flush, blocks) for key in cap]
+    del flush
+
+    r2 = rq * rq
+
+    def misses(same, seen):
+        return int((seen & ~same).sum())
+
+    for lv in levels:
+        occ_t, rgb_t, m_t = res[("tiles", lv)]
+        occ_a, rgb_a, m_a = res[("knn_auto", lv)]
+        c = npc.levels[lv]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        D, I, nn = K.find_neighbors(p, c.pos, c.count, r_query,
+                                    k=npc.nn_num)
+        torch.cuda.synchronize()
+        fn_ms = (time.perf_counter() - t0) * 1e3
+        exact = within_radius_ids(D, I, r2)
+        ids_t = within_radius_ids(*knn[("tiles", lv)], r2)
+        ids_a = within_radius_ids(*knn[("knn_auto", lv)], r2)
+        m_x = nn >= mcfg.min_nn_num      # eval_points' mask, exactly
+        same_t = (ids_t == exact).all(1)
+        same_a = (ids_a == exact).all(1)
+        both = same_t & same_a
+        rec = {"count": int(c.count), "capacity": int(c.capacity),
+               "tiles": int(indexes[lv][1].shape[1]),
+               "masked_tiles": int(m_t.sum()),
+               "masked_knn_auto": int(m_a.sum()),
+               "masked_exact": int(m_x.sum()),
+               "with_neighbours_exact": int((nn > 0).sum()),
+               "tiles_not_exact_of_with_neighbours": misses(
+                   same_t, (ids_t >= 0).any(1) | (nn > 0)),
+               "knn_auto_not_exact_of_with_neighbours": misses(
+                   same_a, (ids_a >= 0).any(1) | (nn > 0)),
+               "mask_mismatches_tiles_exact": int((m_t != m_x).sum()),
+               "mask_mismatches_tiles_knn_auto": int((m_t != m_a).sum()),
+               "occ_max_abs_diff_both_exact": float(
+                   (occ_t - occ_a).abs()[both].max()),
+               "rgb_max_abs_diff_both_exact": float(
+                   (rgb_t - rgb_a).abs()[both].max()),
+               "occ_max_abs_diff_all": float((occ_t - occ_a).abs().max()),
+               "find_neighbors_ms": fn_ms,
+               "knn_auto_D_equal_exact": bool(
+                   torch.equal(D, knn[("knn_auto", lv)][0])),
+               "neighbours_in_radius_mean": float(nn.float().mean())}
+        out["levels"][lv] = rec
+        emit({"points_level": {lv: rec}})
+        tol = LOSS_RTOL
+        ok = (rec["tiles_not_exact_of_with_neighbours"] == 0
+              and rec["mask_mismatches_tiles_exact"] == 0
+              and int(((m_t != m_a) & both).sum()) == 0
+              and rec["masked_tiles"] > 0
+              and torch.allclose(occ_t[both], occ_a[both], rtol=tol,
+                                 atol=tol)
+              and torch.allclose(rgb_t[both], rgb_a[both], rtol=tol,
+                                 atol=tol)
+              and bool(torch.isfinite(occ_t).all())
+              and bool(torch.isfinite(rgb_t).all())
+              and torch.equal(nn, K.neighbor_counts(D, r_query)))
+        if not ok:
+            raise AssertionError(f"points {lv}: {rec}")
+    out["tolerance"] = {"topk": TOPK_TOL, "occ_rgb_rtol_atol": LOSS_RTOL}
+    return out
+
+
 def mesh_and_metrics(cfg_path: str, run_out: str, render_every: int,
                      gt_res: int = 60, launched=()) -> dict:
     """repro_quality.sh's steps on the port: the TSDF mesh of the run's
@@ -2449,27 +2691,43 @@ def run_loop(out_dir: str) -> dict:
 
 
 def run_quality(out_dir: str) -> dict:
-    """repro_quality.sh on the port: synth_quality.yaml's 120 frames, the
-    mesh (voxel 5/512, every 5th frame), the culled GT and the metrics;
-    then synth_loop.yaml uncut.  Reports beside the reference's numbers;
-    holds no limit but the mesh's sanity bound."""
-    s, _traj = run_slam(out_dir, "quality", spec=(QUALITY_CFG, {}, (), ()),
-                        keep=True, max_ate=None)
-    try:
-        s["mesh"] = mesh_and_metrics(os.path.join(s["work"], "smoke.yaml"),
-                                     os.path.join(s["work"], "out"), 5)
-    finally:
-        shutil.rmtree(s.pop("work"), ignore_errors=True)
-    emit({"quality_synth_quality": s})
-    loop, _traj = run_slam(out_dir, "quality_loop",
-                           spec=(LOOP_CFG, {}, (), ()), keep=True,
-                           max_ate=None)
-    try:
-        loop.update(end_correction_ates(loop))
-    finally:
-        shutil.rmtree(loop.pop("work"), ignore_errors=True)
-    return {"reference": QUALITY_REFERENCE, "synth_quality": s,
-            "synth_loop": loop}
+    """repro_quality.sh on the port at each seed of QUALITY_SEEDS:
+    synth_quality.yaml's 120 frames, the mesh (voxel 5/512, every 5th
+    frame), the culled GT and the metrics; then synth_loop.yaml uncut,
+    with its ATE before and after the end correction.  Reports beside the
+    reference's numbers; holds no limit but the mesh's sanity bound."""
+    runs = []
+    for seed in QUALITY_SEEDS:
+        s, _traj = run_slam(out_dir, "quality", tag=f"_{seed}",
+                            spec=(QUALITY_CFG, {}, (), ()), seed=seed,
+                            keep=True, max_ate=None)
+        try:
+            s["mesh"] = mesh_and_metrics(
+                os.path.join(s["work"], "smoke.yaml"),
+                os.path.join(s["work"], "out"), 5)
+        finally:
+            shutil.rmtree(s.pop("work"), ignore_errors=True)
+        emit({"quality_synth_quality": dict(s, seed=seed)})
+        loop, _traj = run_slam(out_dir, "quality_loop", tag=f"_{seed}",
+                               spec=(LOOP_CFG, {}, (), ()), seed=seed,
+                               keep=True, max_ate=None)
+        try:
+            loop.update(end_correction_ates(loop))
+        finally:
+            shutil.rmtree(loop.pop("work"), ignore_errors=True)
+        emit({"quality_synth_loop": dict(loop, seed=seed)})
+        runs.append({"seed": seed, "synth_quality": s, "synth_loop": loop})
+    return {"reference": QUALITY_REFERENCE, "runs": [{
+        "seed": r["seed"],
+        "ate_cm": 100 * r["synth_quality"]["ate_rmse_m"],
+        **{k: r["synth_quality"]["mesh"][k] for k in
+           ("accuracy_cm", "completion_cm", "fscore")},
+        "loop_ate_cm_before": 100 * r["synth_loop"][
+            "ate_before_correction_m"],
+        "loop_ate_cm_after": 100 * r["synth_loop"][
+            "ate_after_correction_m"],
+        "loop_end_correction": r["synth_loop"]["end_correction"]}
+        for r in runs]}
 
 
 # scannet_scale: the benchmark workload (hpslam_tpu_torch/bench.py) at
@@ -2831,7 +3089,8 @@ def main(argv=None) -> int:
                                    if k != "work"}})
         for name, fn in (("resume", lambda: run_resume(vis, traj_vis)),
                          ("mesh", lambda: run_mesh(vis)),
-                         ("telemetry", lambda: run_telemetry(vis))):
+                         ("telemetry", lambda: run_telemetry(vis)),
+                         ("points", lambda: run_points(vis))):
             if name in phases:
                 with phase(name, seconds):
                     if vis is None:

@@ -62,6 +62,15 @@ def flatten_core(core) -> list:
     return out + [core["out"]["w"], core["out"]["b"]]
 
 
+def unflatten_core_like(core, flat):
+    """The inverse of flatten_core: ``flat`` back into ``core``'s tree."""
+    it = iter(flat)
+    layers = [{"w": next(it), "b": next(it)} for _ in core["layers"]]
+    fc_c = [{"w": next(it), "b": next(it)} for _ in core["fc_c"]]
+    return {"layers": layers, "fc_c": fc_c,
+            "out": {"w": next(it), "b": next(it)}}
+
+
 def row_offsets(S: int, u: int) -> dict:
     return {"z": 0, "pts": S, "rays_d": 4 * S, "d_gt": 4 * S + 3,
             "c_gt": 4 * S + 4, "pm": 4 * S + 7, "wm": 5 * S + 7,

@@ -12,6 +12,17 @@ import numpy as np
 import torch
 
 
+def as_intrinsics_matrix(intrinsics) -> np.ndarray:
+    """(fx, fy, cx, cy) -> 3x3 K matrix (float64 numpy, as the reference)."""
+    fx, fy, cx, cy = intrinsics
+    K = np.eye(3)
+    K[0, 0] = fx
+    K[1, 1] = fy
+    K[0, 2] = cx
+    K[1, 2] = cy
+    return K
+
+
 def camera_dirs(i, j, fx, fy, cx, cy):
     """(N,) pixel columns/rows -> (N, 3) camera-frame ray directions."""
     return torch.stack([(i - cx) / fx, -(j - cy) / fy, -torch.ones_like(i)],
@@ -64,6 +75,71 @@ def get_camera_from_tensor(t: torch.Tensor) -> torch.Tensor:
     R = quad2rotation(t[:, :4])
     RT = torch.cat([R, t[:, 4:, None]], dim=2)
     return RT[0] if single else RT
+
+
+def rotation2quad(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix (..., 3, 3) -> quaternion wxyz (Shepperd's method,
+    branch-free): the four constructions, the one of the largest of (trace,
+    m00, m11, m22) taken (the first on a tie), normalised, qw >= 0."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def root(a):
+        return torch.sqrt(torch.clamp(a, min=1e-12)) / 2
+    qw0 = root(1 + tr)
+    q0 = torch.stack([qw0, (m21 - m12) / (4 * qw0), (m02 - m20) / (4 * qw0),
+                      (m10 - m01) / (4 * qw0)], -1)
+    qx1 = root(1 + m00 - m11 - m22)
+    q1 = torch.stack([(m21 - m12) / (4 * qx1), qx1, (m01 + m10) / (4 * qx1),
+                      (m02 + m20) / (4 * qx1)], -1)
+    qy2 = root(1 - m00 + m11 - m22)
+    q2 = torch.stack([(m02 - m20) / (4 * qy2), (m01 + m10) / (4 * qy2), qy2,
+                      (m12 + m21) / (4 * qy2)], -1)
+    qz3 = root(1 - m00 - m11 + m22)
+    q3 = torch.stack([(m10 - m01) / (4 * qz3), (m02 + m20) / (4 * qz3),
+                      (m12 + m21) / (4 * qz3), qz3], -1)
+    cand = torch.stack([q0, q1, q2, q3], dim=-2)          # (..., 4, 4)
+    best = torch.argmax(torch.stack([tr, m00, m11, m22], -1), dim=-1)
+    q = torch.gather(cand, -2, best[..., None, None].expand(
+        best.shape + (1, 4)))[..., 0, :]
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    return torch.where(q[..., :1] < 0, -q, q)
+
+
+def get_tensor_from_camera(RT, Tquad: bool = False) -> torch.Tensor:
+    """3x4 / 4x4 c2w -> 7-vector [q, T] (or [T, q] with Tquad)."""
+    RT = torch.as_tensor(RT)
+    quad, T = rotation2quad(RT[:3, :3]), RT[:3, 3]
+    return torch.cat([T, quad]) if Tquad else torch.cat([quad, T])
+
+
+def c2w_to_44(c2w34: torch.Tensor) -> torch.Tensor:
+    """Append the homogeneous bottom row to a 3x4 pose."""
+    bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=c2w34.dtype,
+                          device=c2w34.device)
+    return torch.cat([c2w34, bottom], dim=0)
+
+
+def transform_points(T44: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Apply a 4x4 rigid transform to (N, 3) points."""
+    return pts @ T44[:3, :3].T + T44[:3, 3]
+
+
+def cart2sph(xyz: torch.Tensor) -> torch.Tensor:
+    """Unit normals (N, 3) -> (inclination, azimuth) (N, 2)."""
+    xy = xyz[:, 0] ** 2 + xyz[:, 1] ** 2
+    theta = torch.atan2(torch.sqrt(xy), xyz[:, 2])
+    phi = torch.atan2(xyz[:, 1], xyz[:, 0])
+    return torch.stack([theta, phi], -1)
+
+
+def masked_psnr(img1, img2, mask) -> torch.Tensor:
+    """PSNR over the pixels where ``mask`` is true (100 where they agree)."""
+    mse = torch.mean((img1[mask] - img2[mask]) ** 2)
+    return torch.where(mse == 0, torch.full_like(mse, 100.0),
+                       -10.0 * torch.log10(mse))
 
 
 def project_points(points, w2c, fx, fy, cx, cy, flip_x: bool = True):

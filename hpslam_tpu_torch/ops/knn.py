@@ -262,6 +262,14 @@ def neighbor_counts(D, radius):
     return torch.sum(D < r * r, dim=-1)
 
 
+def find_neighbors(query, points, count, radius, k: int = 8,
+                   q_chunk: int = 4096, n_tile: int = 8192):
+    """Radius query: the exact kNN, then the number of those k within the
+    radius (a scalar or one per query).  Returns (D, I, neighbor_num)."""
+    D, I = knn(query, points, count, k=k, q_chunk=q_chunk, n_tile=n_tile)
+    return D, I, neighbor_counts(D, radius)
+
+
 # ---------------------------------------------------------------------------
 # tile index
 

@@ -1,11 +1,27 @@
 """Ray-depth samplers (port of hpslam_tpu/ops/sampling.py).
 
-Random draws are passed in (``u`` for sample_pdf) or drawn by the caller
-from a ``torch.Generator``: the port cannot reproduce ``jax.random``.
+Random draws are passed in (``u`` for sample_pdf) or drawn from an explicit
+``torch.Generator`` (``sample_indices``): the port cannot reproduce
+``jax.random``.
 """
 from __future__ import annotations
 
 import torch
+
+
+def sample_indices(gen: torch.Generator, pool: torch.Tensor,
+                   n: int) -> torch.Tensor:
+    """n flat pixel indices drawn uniformly, with replacement, from
+    ``pool`` (the valid pixels) with the explicit generator ``gen`` (on
+    ``pool``'s device)."""
+    choice = torch.randint(0, pool.shape[0], (n,), generator=gen,
+                           device=pool.device)
+    return pool[choice]
+
+
+def flat_to_ij(flat_idx: torch.Tensor, W: int):
+    """Flat index -> (i = column, j = row) of a W-wide image."""
+    return flat_idx % W, flat_idx // W
 
 
 def surface_z_vals(gt_depth, n_surface: int, near_end_surface: float,

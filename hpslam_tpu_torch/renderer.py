@@ -126,3 +126,28 @@ def sample_near_pcl_z(rays_o, rays_d, near, far, n_surface: int, cloud_pos,
     z_full = torch.linspace(float(near), float(far), n_surface,
                             device=dev).expand(N, n_surface)
     return torch.where(invalid[:, None], z_full, z_hit), invalid
+
+
+def eval_points(params, mcfg: Dec.ModelConfig, p, cloud_pos, cloud_count,
+                geo_feats, col_feats, r_query, nn_num: int = 8,
+                level: str = "fine", exposure_feat=None, tile_index=None):
+    """Occupancy logit and colour at arbitrary points through one level's
+    decoders (the mesher's query): the nn_num nearest points through the
+    tile index where one is given (kernel #1), else knn_auto; the plain
+    decoder trunks.  Returns (occ (N,), rgb (N, 3), point_mask (N,))."""
+    if tile_index is not None:
+        D, I = K.knn_tiles(p.detach(), *tile_index, k=nn_num)
+    else:
+        D, I = K.knn_auto(p.detach(), cloud_pos, cloud_count, k=nn_num)
+    geo_dec = params[f"geo_{level}"]
+    col_dec = params[f"col_{level}"]
+    c_geo, has = Dec.interpolate_level_feats(
+        geo_dec, mcfg, p, D, I, geo_feats, cloud_pos, r_query,
+        diff_pos=False, encode_rel_pos=mcfg.encode_rel_pos_in_geo)
+    occ = Dec.apply_geo(geo_dec, mcfg, p, c_geo)
+    c_col, _ = Dec.interpolate_level_feats(
+        col_dec, mcfg, p, D, I, col_feats, cloud_pos, r_query,
+        diff_pos=False, encode_rel_pos=mcfg.encode_rel_pos_in_col)
+    rgb = Dec.apply_color(col_dec, mcfg, p, c_col,
+                          exposure_feat=exposure_feat)
+    return occ, rgb, has

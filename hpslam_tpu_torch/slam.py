@@ -184,7 +184,8 @@ class PointSLAM:
         for name, lv in state["levels"].items():
             self.npc.restore_level(name, lv["pos"], lv["normal"], lv["geo"],
                                    lv["col"], int(lv.get("capacity", 0)))
-        self.npc.restore_input(state["input_pos"], state["input_rgb"])
+        self.npc.restore_input(state["input_pos"], state["input_rgb"],
+                               state.get("input_normal"))
         self.params = params_from_numpy(state["decoder_params"], self.device)
         self.exposure_feat = np.asarray(state["exposure_feat"], np.float32)
         idx = int(state["idx"])
@@ -235,6 +236,8 @@ class PointSLAM:
             "event": "map", "idx": idx, "time_s": dt,
             "pts": self.npc.pts_num(), "geo_loss": info["geo_loss_last"],
             "color_loss": info["color_loss_last"],
+            "geo_loss_curve": info["geo_loss_curve"],
+            "color_loss_curve": info["color_loss_curve"],
             "iters": info["n_joint_iters"]})
         if not (self.cfg["mapping"]["no_vis_on_first_frame"] and idx == 0):
             self._log_vis(mf, "mapping", self.mapper_vis.vis(
@@ -292,7 +295,9 @@ class PointSLAM:
                 from .tools.eval_ate import evaluate_trajectory
                 results = evaluate_trajectory(
                     self.gt_c2w_list, self.estimate_c2w_list, n - 1,
-                    self.scale, plot=None, use_alignment=True)
+                    self.scale, plot=f"{self.output}/eval_ate_aligned.png"
+                    if self.is_main else None,
+                    use_alignment=True)
                 if self.verbose:
                     print("ate_rmse:", results, flush=True)
                 self._log_metrics(mf, {"event": "ate", **{
@@ -345,6 +350,7 @@ class PointSLAM:
             self._log_metrics(mf, {
                 "event": "track", "idx": idx, "time_s": ttime,
                 "loss": tinfo.get("loss_best"),
+                "loss_curve": tinfo.get("loss_curve"),
                 "quad_err": tinfo.get("cam_error_quad"),
                 "pos_err": tinfo.get("cam_error_pos")})
             self._log_vis(mf, "tracking", self.tracker_vis.vis(

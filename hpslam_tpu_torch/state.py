@@ -114,6 +114,9 @@ class NeuralPointCloud:
             for lvl in pc["radius_hierarchy"].keys()}
         self._input_pos: list = []
         self._input_rgb: list = []
+        self._input_normal: list = []
+        self._input_normal_cartesian: list = []
+        self.keyframe_dict: list = []
         self._tile_index: Dict[str, tuple] = {}
         self._index_dirty: Dict[str, bool] = {}
         self.gen = torch.Generator(device=device)
@@ -156,19 +159,67 @@ class NeuralPointCloud:
         lv.count = n
         self._index_dirty[level] = True
 
-    def restore_input(self, pos, rgb):
+    def restore_input(self, pos, rgb, normal=None):
         """Load the checkpointed raw input cloud (host lists)."""
         self._input_pos = np.asarray(pos, np.float32).reshape(-1, 3).tolist()
         self._input_rgb = np.asarray(rgb, np.float32).reshape(-1, 3).tolist()
+        self._input_normal = ([] if normal is None else np.asarray(
+            normal, np.float32).reshape(-1, 2).tolist())
 
     def pts_num(self) -> Dict[str, int]:
         return {k: int(v.count) for k, v in self.levels.items()}
+
+    def index_ntotal(self, level: str) -> int:
+        return int(self.levels[level].count)
+
+    def cloud_pos(self, level: str) -> torch.Tensor:
+        return self.levels[level].pos
+
+    def cloud_normal(self, level: str) -> torch.Tensor:
+        return self.levels[level].normal
+
+    def get_geo_feats(self, level: str) -> torch.Tensor:
+        return self.levels[level].geo
+
+    def get_col_feats(self, level: str) -> torch.Tensor:
+        return self.levels[level].col
+
+    def update_geo_feats(self, feats, level: str):
+        self.levels[level].geo = torch.as_tensor(
+            feats, dtype=torch.float32, device=self.device)
+
+    def update_col_feats(self, feats, level: str):
+        self.levels[level].col = torch.as_tensor(
+            feats, dtype=torch.float32, device=self.device)
+
+    def get_keyframe_dict(self):
+        return list(self.keyframe_dict)
+
+    def set_keyframe_dict(self, value):
+        self.keyframe_dict = value
 
     def input_pos(self):
         return self._input_pos
 
     def input_rgb(self):
         return self._input_rgb
+
+    def input_normal(self):
+        """The input cloud's spherical normals: none are recorded at
+        insertion (no mapper passes normals, the reference's neither), so
+        only what a checkpoint restored."""
+        return self._input_normal
+
+    def input_normal_cartesian(self):
+        return self._input_normal_cartesian
+
+    def find_neighbors(self, pos, level: str, radius):
+        """(D, I, neighbor_num): the exact nn_num nearest points of the
+        level and how many of them lie within ``radius``."""
+        lv = self.levels[level]
+        return K.find_neighbors(
+            torch.as_tensor(pos, dtype=torch.float32, device=self.device),
+            lv.pos, lv.count, radius, k=self.nn_num)
 
     @torch.no_grad()
     def scatter_feats(self, idx, geo, col, level: str):

@@ -6,7 +6,8 @@ Semantics preserved: NaN/Inf ground-truth poses are masked before pairing
 (ScanNet has some, eval_ate.py:250-267), alignment is Horn's closed-form
 SE(3) fit, and the summary dict uses the same keys.  Runs in-process from
 the SLAM loop (the reference shells out to a subprocess, Mapper.py:1222-1244)
-and as a CLI over a checkpoint.
+and as a CLI over a checkpoint.  ``plot`` names a PNG of the x-y
+trajectories (``plot_trajectories``), drawn without matplotlib.
 """
 from __future__ import annotations
 
@@ -56,9 +57,44 @@ def pose_mask(c2w_list: np.ndarray, n: int) -> np.ndarray:
     return m
 
 
+# the reference's figure: matplotlib's default 6.4 x 4.8 inches at 200 dpi
+# and its default axes box (left 0.125, right 0.9, bottom 0.11, top 0.88)
+PLOT_HW = (960, 1280)
+PLOT_BOX = (160, 115, 1152, 854)
+GT_COLOR = (0, 0, 0)           # "black"
+EST_COLOR = (0, 0, 255)        # matplotlib's "blue"
+
+
+def plot_trajectories(path: str, gt_xyz: np.ndarray, est_xyz: np.ndarray):
+    """Ground truth in black and the (aligned) estimate in blue, in x-y,
+    as polylines on one box with matplotlib's 5 % data margins, on a white
+    canvas written as a PNG (``utils/telemetry.py``'s canvas; the card's
+    machine has no matplotlib).  Deliberate deviation from the reference's
+    figure: no title, legend, ticks or axis labels (there is no font)."""
+    from ..utils.image_io import write_png
+    from ..utils.telemetry import _draw_frame, _draw_polyline, project
+    img = np.full(PLOT_HW + (3,), 255, np.uint8)
+    _draw_frame(img, PLOT_BOX)
+    series = []
+    for xyz, color in ((gt_xyz, GT_COLOR), (est_xyz, EST_COLOR)):
+        xy = np.asarray(xyz, np.float64)[:2]
+        series.append((xy[:, np.isfinite(xy).all(0)], color))
+    both = np.concatenate([xy for xy, _ in series], axis=1)
+    if both.size:
+        lims = []
+        for lo, hi in zip(both.min(1), both.max(1)):
+            pad = 0.05 * (hi - lo)
+            lims.append((lo - pad, hi + pad))
+        for xy, color in series:
+            if xy.shape[1]:
+                px, py = project(xy[0], xy[1], PLOT_BOX, *lims)
+                _draw_polyline(img, px, py, color)
+    write_png(path, img)
+
+
 def evaluate_trajectory(gt_c2w_list, est_c2w_list, n: int, scale: float = 1.0,
-                        plot: str | None = None, use_alignment: bool = True,
-                        scene: str = "") -> dict:
+                        plot: str | None = None,
+                        use_alignment: bool = True) -> dict:
     gt = np.asarray(gt_c2w_list, np.float64)
     est = np.asarray(est_c2w_list, np.float64)
     mask = pose_mask(gt, n)
@@ -73,26 +109,7 @@ def evaluate_trajectory(gt_c2w_list, est_c2w_list, n: int, scale: float = 1.0,
         est_aligned = est_xyz
 
     if plot:
-        try:
-            import matplotlib
-            matplotlib.use("Agg")
-            import matplotlib.pyplot as plt
-            fig, ax = plt.subplots()
-            rmse = np.sqrt(np.mean(err ** 2))
-            ax.set_title(f"ate-rmse of {err.size} pose pairs "
-                         f"({'aligned' if use_alignment else 'no_align'}): "
-                         f"{rmse:0.4f}m {scene}")
-            ax.plot(gt_xyz[0], gt_xyz[1], "-", color="black",
-                    label="ground truth")
-            ax.plot(est_aligned[0], est_aligned[1], "-", color="blue",
-                    label="estimated")
-            ax.legend()
-            ax.set_xlabel("x [m]")
-            ax.set_ylabel("y [m]")
-            fig.savefig(plot, dpi=200)
-            plt.close(fig)
-        except Exception as e:  # noqa: BLE001 — plotting is best-effort
-            print(f"ATE plot failed: {e}")
+        plot_trajectories(plot, gt_xyz, est_aligned)
     return ate_stats(err)
 
 
@@ -117,7 +134,7 @@ def main(argv=None):
     results = evaluate_trajectory(
         state["gt_c2w_list"], state["estimate_c2w_list"], state["idx"],
         cfg["scale"], plot=f"{output}/eval_ate_{align_opt}.png",
-        use_alignment=not args.no_align, scene=args.config)
+        use_alignment=not args.no_align)
     print(results)
     return 0
 

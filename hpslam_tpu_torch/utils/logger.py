@@ -53,7 +53,8 @@ class Logger:
             "pts_num": npc.pts_num(),
             "input_pos": np.asarray(npc.input_pos(), np.float32),
             "input_rgb": np.asarray(npc.input_rgb(), np.float32),
-            "input_normal": np.zeros((0, 2), np.float32),
+            "input_normal": np.asarray(npc.input_normal(),
+                                       np.float32).reshape(-1, 2),
             "decoder_params": to_numpy(params),
             "exposure_feat": np.asarray(exposure_feat),
             "gt_c2w_list": np.asarray(gt_c2w_list),

@@ -3,6 +3,7 @@ tests/test_e2e.py (48x64 frames, 7 frames, <= 12 iterations), through the
 port's own entry point.  ATE below 0.5 m as test_e2e.py requires; the
 slow companion runs both packages on the same config and compares ATE."""
 import copy
+import json
 import os
 
 import numpy as np
@@ -62,6 +63,44 @@ def test_port_runs_tiny_synthetic_on_cpu(tmp_path):
     assert state["levels"]["fine"]["count"] > 0
     assert state["decoder_params"]["col_fine"]["core"]["out"]["w"].shape \
         == (128, 3)
+    check_products(out, tiny_cfg(tmp_path)["tracking"]["iters"])
+
+
+# the records' keys as hpslam_tpu/slam.py writes them (:194-200, :338-344)
+TRACK_KEYS = {"event", "idx", "time_s", "loss", "loss_curve", "quad_err",
+              "pos_err"}
+MAP_KEYS = {"event", "idx", "time_s", "pts", "geo_loss", "color_loss",
+            "geo_loss_curve", "color_loss_curve", "iters"}
+
+
+def check_products(out: str, track_iters: int):
+    """The run's metrics.jsonl records have the reference's keys, the loss
+    curves among them, finite; eval_ate_aligned.png decodes with the port's
+    PNG reader to its canvas with ground truth and estimate drawn."""
+    from hpslam_tpu_torch.tools.eval_ate import EST_COLOR, GT_COLOR
+    from hpslam_tpu_torch.utils.image_io import read_png
+    tracks, maps = [], []
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        for line in f:
+            rec = json.loads(line)
+            {"track": tracks, "map": maps}.get(rec["event"], []).append(rec)
+    assert tracks and maps
+    for rec in tracks:
+        assert set(rec) == TRACK_KEYS, set(rec) ^ TRACK_KEYS
+        curve = rec["loss_curve"]
+        assert len(curve) == track_iters
+        assert np.isfinite(curve).all()
+        assert min(curve) <= rec["loss"] + 5e-4   # the best, rounded
+    for rec in maps:
+        assert set(rec) == MAP_KEYS, set(rec) ^ MAP_KEYS
+        g, c = rec["geo_loss_curve"], rec["color_loss_curve"]
+        assert len(g) == len(c) > 0
+        assert np.isfinite(g).all() and np.isfinite(c).all()
+    img = read_png(os.path.join(out, "eval_ate_aligned.png"))
+    assert img.shape == (960, 1280, 3) and img.dtype == np.uint8
+    for color in (GT_COLOR, EST_COLOR):
+        assert (img == np.array(color, np.uint8)).all(-1).sum() > 50, color
+    assert (img != 255).any(-1).mean() < 0.2
 
 
 def test_port_runs_tiny_synthetic_fused_paths_on_cpu(tmp_path, monkeypatch):

@@ -35,6 +35,20 @@ def test_import_pulls_in_neither_jax_nor_reference():
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
+            "from hpslam_tpu_torch.renderer import eval_points\n"
+            "from hpslam_tpu_torch.ops.knn import find_neighbors\n"
+            "from hpslam_tpu_torch.ops.geometry import (as_intrinsics_matrix, "
+            "rotation2quad, get_tensor_from_camera, c2w_to_44, "
+            "transform_points, cart2sph, masked_psnr)\n"
+            "from hpslam_tpu_torch.ops.sampling import sample_indices, "
+            "flat_to_ij\n"
+            "from hpslam_tpu_torch.ops.fused_mlp import unflatten_core_like\n"
+            "from hpslam_tpu_torch.state import NeuralPointCloud as N\n"
+            "assert all(hasattr(N, a) for a in ('index_ntotal', 'cloud_pos', "
+            "'cloud_normal', 'get_geo_feats', 'get_col_feats', "
+            "'update_geo_feats', 'update_col_feats', 'get_keyframe_dict', "
+            "'set_keyframe_dict', 'input_normal', 'input_normal_cartesian', "
+            "'find_neighbors'))\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "'jax.') or m == 'hpslam_tpu' or m.startswith('hpslam_tpu.') "
             "or m == 'bench']\n"
@@ -127,10 +141,10 @@ def test_wandb_only_inside_telemetry_init():
 
 def test_no_plotting_or_imaging_library():
     """The card's machine has neither matplotlib nor PIL: no port module
-    (nor chip_smoke.py) imports them at module level (eval_ate's optional
-    plot imports matplotlib at the call), the visualiser's, meshing and
-    native modules are among those imported, and importing every module
-    leaves both out."""
+    (nor chip_smoke.py) imports them anywhere, at module level or inside a
+    function (eval_ate draws its plot on the port's own canvas), the
+    visualiser's, meshing, native and ATE modules are among those
+    imported, and importing every module leaves both out."""
     mods = _port_modules()
     assert {"hpslam_tpu_torch.utils.visualizer",
             "hpslam_tpu_torch.utils.panels", "hpslam_tpu_torch.native",
@@ -138,8 +152,9 @@ def test_no_plotting_or_imaging_library():
             "hpslam_tpu_torch.tools.end_correction",
             "hpslam_tpu_torch.tools.eval_recon",
             "hpslam_tpu_torch.tools.cull_mesh",
-            "hpslam_tpu_torch.tools.make_synth_gt_mesh"} <= set(mods)
-    pat = re.compile(r"^(import|from)\s+(matplotlib|PIL)\b", re.M)
+            "hpslam_tpu_torch.tools.make_synth_gt_mesh",
+            "hpslam_tpu_torch.tools.eval_ate"} <= set(mods)
+    pat = re.compile(r"^\s*(import|from)\s+(matplotlib|PIL)\b", re.M)
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, fs in os.walk(PKG):
         files += [os.path.join(dirpath, f) for f in fs if f.endswith(".py")]
