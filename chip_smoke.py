@@ -138,6 +138,18 @@ Phases, each printed as one JSON line when it starts and when it ends:
            exact one, and where the segment-min route also has them the
            masks are equal and occupancy and colour within LOSS_RTOL; each
            route's ms
+  lockstep frame 6 tracked, then mapped (LOCKSTEP_MAP_ITERS iterations at
+           the CPU's tracked pose), from slam_vis's frame-5 checkpoint on
+           the CPU and then on the card in this process, on the same draws
+           (a CPU generator, the ids moved to the card), each of the card's
+           Adam steps taken from the CPU's parameters and moments of that
+           iteration and its union caches the CPU's, their differing pixels
+           counted (tests/test_torch_lockstep.py holds the CPU against
+           hpslam_tpu the same way): the card's pose and its own step of the
+           pose at every iteration within LOCKSTEP_POSE_ATOL of the CPU's,
+           both loss curves within LOCKSTEP_LOSS_RTOL (TF32 off), #1 and #3
+           launched; both poses, the curves and the largest differences of
+           the features and decoders printed
   loop     configs/Synthetic/synth_loop.yaml, all 60 frames, iterations
            cut (LOOP_CUTS): the end correction is applied and lowers the
            ATE of the same trajectory (its last checkpoint) evaluated
@@ -152,7 +164,7 @@ Phases, each printed as one JSON line when it starts and when it ends:
            tensor cores at f32 accuracy (tc_bound_ms, 3xTF32), and #8's and
            #9's time on bf16 features (bf16_ms)
   band     (only when named in --phases) synth_tpu.yaml and
-           synth_noisy.yaml for all 30 frames at seeds 0, 1, 2 on the slam
+           synth_noisy.yaml for all 30 frames at seeds 0-4 on the slam
            and slam_fused paths: each ATE beside the reference's band
   quality  (only when named in --phases) repro_quality.sh on the port
            at seeds 0, 1, 2 (QUALITY_SEEDS): synth_quality.yaml's 120
@@ -185,7 +197,7 @@ PHASES = ["device", "build", "topk", "maploss", "trunks", "trackloss",
           "composite", "slam", "slam_fused", "slam_mesh", "slam_tum",
           "slam_ba", "slam_bf16", "slam_geo", "slam_scannet",
           "scannet_scale", "slam_vis", "resume", "mesh", "telemetry",
-          "points", "loop", "repeat", "kernels"]
+          "points", "lockstep", "loop", "repeat", "kernels"]
 SLAM_PHASES = ["slam", "slam_fused", "slam_mesh", "slam_tum", "slam_ba",
                "slam_bf16", "slam_geo", "slam_scannet"]
 
@@ -1853,7 +1865,7 @@ SLAM_RUNS = {
 BAND_CONFIGS = {"synth_tpu": SYNTH_CFG,
                 "synth_noisy": "configs/Synthetic/synth_noisy.yaml"}
 BAND_PATHS = {"slam": {}, "slam_fused": FUSED}
-BAND_SEEDS = (0, 1, 2)
+BAND_SEEDS = (0, 1, 2, 3, 4)
 # the reference's 30-frame ATE (cm) on the TPU at its seeds (history, the
 # band the port is held to; ABLATIONS.md round 5, QUALITY.md)
 BAND_REFERENCE_CM = {"synth_tpu": {"seeds": [0, 1, 2],
@@ -2599,6 +2611,269 @@ def run_points(vis: dict) -> dict:
     return out
 
 
+# lockstep: the card against the CPU on one tracked and one mapped frame
+# from slam_vis's frame-5 checkpoint (the mapping cut to LOCKSTEP_MAP_ITERS
+# iterations: the CPU side of synth_tpu's 150 takes minutes), iteration by
+# iteration: the card's every Adam step is taken from the CPU's parameters
+# and moments of that iteration, as tests/test_torch_lockstep.py holds the
+# port against the reference; free-running, the two part beyond these
+# tolerances within a few tracking iterations (rounding-level gradient
+# differences, carried by Adam's normalised steps over the robust loss's
+# discontinuities)
+LOCKSTEP_FRAME = VIS_FRAME + 1
+LOCKSTEP_MAP_ITERS = 30
+LOCKSTEP_SEED = 0
+LOCKSTEP_POSE_ATOL = 1e-3       # card against CPU, f32, TF32 off
+LOCKSTEP_LOSS_RTOL = 1e-2
+
+
+@contextlib.contextmanager
+def adam_steps(follow=None):
+    """Inside: the port's Adam step (ops.optim.update) records each step's
+    result on the host, or, given ``follow`` (such a record), takes its
+    own step, keeps its largest difference from the followed one (per
+    parameter leaf name) and returns the followed result, moved to the
+    caller's device.  Yields the list of records, or of differences."""
+    import torch
+    from hpslam_tpu_torch.ops import optim as O
+    step = O.update
+    out = []
+
+    def host(t):
+        return t.detach().cpu().clone() if torch.is_tensor(t) else t
+
+    def update(grads, state, params, lr, *a, **kw):
+        new_p, new_s = step(grads, state, params, lr, *a, **kw)
+        if follow is None:
+            out.append(O.tree_map(host, (new_p, new_s)))
+            return new_p, new_s
+        ref_p, ref_s = follow[len(out)]
+        out.append({k: max(float((x.detach().cpu() - y).abs().max())
+                           for x, y in zip(O.tree_leaves(v),
+                                           O.tree_leaves(ref_p[k])))
+                    for k, v in new_p.items()})
+        dev = O.tree_leaves(params)[0].device
+        to = lambda t: t.to(dev) if torch.is_tensor(t) else t
+        return O.tree_map(to, ref_p), O.tree_map(to, ref_s)
+
+    O.update = update
+    try:
+        yield out
+    finally:
+        O.update = step
+
+
+@contextlib.contextmanager
+def cpu_draws(seed: int):
+    """torch.randint / torch.randn drawn on a CPU generator seeded with
+    ``seed`` whatever generator and device the caller names, the result
+    moved to that device: the same draws on the card and on the CPU."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    randint, randn = torch.randint, torch.randn
+
+    def cpu_randint(low, high, size, generator=None, device=None, **kw):
+        return randint(low, high, size, generator=g, **kw).to(device or "cpu")
+
+    def cpu_randn(size, generator=None, device=None, **kw):
+        return randn(size, generator=g, **kw).to(device or "cpu")
+
+    torch.randint, torch.randn = cpu_randint, cpu_randn
+    try:
+        yield
+    finally:
+        torch.randint, torch.randn = randint, randn
+
+
+@contextlib.contextmanager
+def union_caches(follow=None):
+    """Inside: the mapper's union caches (mapper.build_pixel_union_cache)
+    recorded on the host, or, given ``follow`` (such a record), built,
+    counted against the followed ones (the cache pixels whose unions
+    differ: ties and neighbours at the query radius fall either way) and
+    replaced by them, moved to the caller's device, so that the compacted
+    tables, and the Adam steps adam_steps hands over, index the same rows.
+    Yields the list of records, or of counts."""
+    import torch
+    from hpslam_tpu_torch import mapper as M
+    build = M.build_pixel_union_cache
+    out = []
+
+    def move(tree, dev):
+        if isinstance(tree, dict):
+            return {k: move(v, dev) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(move(v, dev) for v in tree)
+        return tree.to(dev)
+
+    def cache(*a, **kw):
+        own = build(*a, **kw)
+        if follow is None:
+            out.append(move(own, "cpu"))
+            return own
+        ref = follow[len(out)]
+        u = own[1].shape[-1]
+        out.append(int((own[1].cpu().reshape(-1, u)
+                        != ref[1].reshape(-1, u)).any(1).sum()))
+        return move(ref, own[1].device)
+
+    M.build_pixel_union_cache = cache
+    try:
+        yield out
+    finally:
+        M.build_pixel_union_cache = build
+
+
+def lockstep_side(vis: dict, device: str, c2w_map=None,
+                  follow=None) -> dict:
+    """slam_vis's frame-5 checkpoint restored on ``device``; frame 6
+    tracked, then mapped at ``c2w_map`` (the tracked pose where None), on
+    the draws of cpu_draws(LOCKSTEP_SEED), the Adam steps and the union
+    caches recorded or, with ``follow`` (the CPU side's result), followed
+    (adam_steps, union_caches).  Returns the tracked pose, the unrounded
+    loss curves, the levels and decoders after the mapping, the steps, the
+    caches, and the kernel launches."""
+    import numpy as np
+    import torch
+    from hpslam_tpu_torch import _cuda
+    from hpslam_tpu_torch import config as C
+    from hpslam_tpu_torch import mapper as M
+    from hpslam_tpu_torch import tracker as T
+    from hpslam_tpu_torch.convert import params_to_numpy
+    from hpslam_tpu_torch.slam import PointSLAM
+    cfg = C.load_config(os.path.join(vis["work"], "smoke.yaml"),
+                        C.default_config_path())
+    cfg["mapping"].update(iters=LOCKSTEP_MAP_ITERS,
+                          more_iters_when_adding=False)
+    cfg["data"]["output"] = tempfile.mkdtemp(prefix="hpslam_lockstep_")
+    got: dict = {}
+    track_frame, map_scan = T.track_frame, M.map_scan
+
+    def record(name, fn):
+        def wrapped(*a, **kw):
+            out = fn(*a, **kw)
+            got.setdefault(name, []).append(out[2].detach().cpu().numpy())
+            return out
+        return wrapped
+
+    try:
+        slam = PointSLAM(cfg, device=device)
+        # the checkpoint's torch generator states are the card's, and
+        # cpu_draws replaces every torch draw: only the mapper's numpy
+        # stream is restored
+        slam.set_rng_states = lambda states: setattr(
+            slam.mapper.rng.bit_generator, "state", states["mapper_np"])
+        slam.restore_from(os.path.join(vis["work"], "out", "ckpts",
+                                       f"{VIS_FRAME:05d}.ckpt"))
+        frame = slam.frame_reader[LOCKSTEP_FRAME]
+        T.track_frame = record("track", track_frame)
+        M.map_scan = record("map", map_scan)
+        _cuda.reset_launches()
+        with cpu_draws(LOCKSTEP_SEED), \
+                adam_steps(follow and follow["steps"]) as steps, \
+                union_caches(follow and follow["caches"]) as caches:
+            c2w, _info, _op = slam.tracker.track(
+                LOCKSTEP_FRAME, frame, slam.npc, slam.params,
+                slam.exposure_feat, slam.estimate_c2w_list, frame.c2w)
+            params, _expo, _minfo = slam.mapper.map(
+                LOCKSTEP_FRAME, frame, slam.npc, slam.params,
+                slam.exposure_feat, c2w if c2w_map is None else c2w_map)
+        if device == "cuda":
+            torch.cuda.synchronize()
+    finally:
+        T.track_frame, M.map_scan = track_frame, map_scan
+        shutil.rmtree(cfg["data"]["output"], ignore_errors=True)
+    return {"c2w": c2w, "track_losses": got["track"][0],
+            "map_losses": np.concatenate(got["map"]),
+            "levels": {k: {"count": lv.count,
+                           "geo": lv.geo[:lv.count].cpu().numpy(),
+                           "col": lv.col[:lv.count].cpu().numpy()}
+                       for k, lv in slam.npc.levels.items()},
+            "decoders": params_to_numpy(params), "steps": steps,
+            "caches": caches,
+            "launches": dict(_cuda.LAUNCHES)}
+
+
+def run_lockstep(vis: dict) -> dict:
+    """Frame 6 tracked and then mapped (LOCKSTEP_MAP_ITERS iterations) from
+    slam_vis's frame-5 checkpoint on the CPU and then on the card in this
+    process, on the same draws (a CPU generator, the ids moved to the
+    card), each card Adam step from the CPU's parameters and moments of the
+    iteration, its union caches the CPU's (after counting the pixels whose
+    unions differ), the mapping of both at the CPU's tracked pose: the
+    card's pose, and its own step of the pose at every iteration, within
+    LOCKSTEP_POSE_ATOL of the CPU's, both loss curves within
+    LOCKSTEP_LOSS_RTOL, #1 launched on the card and #3 on its union
+    mapping; the largest differences of the card's own steps of the
+    features and decoders, and of the levels and decoders after the
+    mapping (reported)."""
+    import numpy as np
+    cpu = lockstep_side(vis, "cpu")
+    card = lockstep_side(vis, "cuda", c2w_map=cpu["c2w"], follow=cpu)
+    n_track = len(cpu["track_losses"])
+    own = {"track": card["steps"][:n_track], "map": card["steps"][n_track:]}
+
+    def rel(a, b):
+        return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-12)))
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [x for k in tree for x in leaves(tree[k])]
+        if isinstance(tree, (list, tuple)):
+            return [x for v in tree for x in leaves(v)]
+        return [np.asarray(tree)]
+
+    out = {
+        "frame": LOCKSTEP_FRAME, "map_iters": LOCKSTEP_MAP_ITERS,
+        "pose_card": np.asarray(card["c2w"]).tolist(),
+        "pose_cpu": np.asarray(cpu["c2w"]).tolist(),
+        "pose_abs_max": float(np.abs(card["c2w"] - cpu["c2w"]).max()),
+        "track_loss_card": card["track_losses"].tolist(),
+        "track_loss_cpu": cpu["track_losses"].tolist(),
+        "track_loss_rel_max": rel(card["track_losses"], cpu["track_losses"]),
+        "map_loss_card": card["map_losses"].tolist(),
+        "map_loss_cpu": cpu["map_losses"].tolist(),
+        "map_loss_rel_max": rel(card["map_losses"], cpu["map_losses"]),
+        "counts_card": {k: v["count"] for k, v in card["levels"].items()},
+        "counts_cpu": {k: v["count"] for k, v in cpu["levels"].items()},
+        "feature_abs_max": {
+            k: float(max(np.abs(card["levels"][k][f]
+                                - cpu["levels"][k][f]).max()
+                         for f in ("geo", "col")))
+            for k in cpu["levels"]
+            if card["levels"][k]["count"] == cpu["levels"][k]["count"]},
+        "decoder_abs_max": float(max(
+            np.abs(a - b).max() for a, b in zip(leaves(card["decoders"]),
+                                                 leaves(cpu["decoders"])))),
+        "union_pixels_differing": card["caches"],
+        "own_step_abs_max": {
+            k: {leaf: max(d[leaf] for d in v) for leaf in v[0]}
+            for k, v in own.items()},
+        "launches": card["launches"],
+        "pose_atol": LOCKSTEP_POSE_ATOL, "loss_rtol": LOCKSTEP_LOSS_RTOL}
+    emit({"lockstep_detail": out})
+    bad = []
+    track_step = max(out["own_step_abs_max"]["track"].values())
+    for name, v in (("pose", out["pose_abs_max"]),
+                    ("stepped pose", track_step)):
+        if not v <= LOCKSTEP_POSE_ATOL:
+            bad.append(f"{name} {v}")
+    for k in ("track", "map"):
+        if not out[f"{k}_loss_rel_max"] <= LOCKSTEP_LOSS_RTOL:
+            bad.append(f"{k} losses {out[f'{k}_loss_rel_max']}")
+    for k in ("topk_rows", "maploss_bwd"):
+        if card["launches"].get(k, 0) <= 0:
+            bad.append(f"{k} not launched")
+    if bad:
+        raise AssertionError(f"lockstep: {bad}")
+    return {k: out[k] for k in ("frame", "map_iters", "pose_abs_max",
+                                "track_loss_rel_max", "map_loss_rel_max",
+                                "own_step_abs_max",
+                                "union_pixels_differing", "counts_card",
+                                "counts_cpu", "feature_abs_max",
+                                "decoder_abs_max", "launches")}
+
+
 def mesh_and_metrics(cfg_path: str, run_out: str, render_every: int,
                      gt_res: int = 60, launched=()) -> dict:
     """repro_quality.sh's steps on the port: the TSDF mesh of the run's
@@ -3090,7 +3365,8 @@ def main(argv=None) -> int:
         for name, fn in (("resume", lambda: run_resume(vis, traj_vis)),
                          ("mesh", lambda: run_mesh(vis)),
                          ("telemetry", lambda: run_telemetry(vis)),
-                         ("points", lambda: run_points(vis))):
+                         ("points", lambda: run_points(vis)),
+                         ("lockstep", lambda: run_lockstep(vis))):
             if name in phases:
                 with phase(name, seconds):
                     if vis is None:

@@ -49,6 +49,13 @@ def grow_level(level: PointLevel, new_capacity: int) -> PointLevel:
                       geo=z(level.geo), col=z(level.col), count=level.count)
 
 
+def ray_points(rays_o, rays_d, z):
+    """rays_o + rays_d * z rounded once, as a fused multiply-add rounds it
+    (the reference's XLA fuses the two): the product and the sum are exact
+    in float64 for float32 operands, then one rounding to float32."""
+    return (rays_o.double() + rays_d.double() * z.double()).float()
+
+
 @torch.no_grad()
 def add_points(level: PointLevel, tile_index, gen: torch.Generator, rays_o,
                rays_d, gt_depth, valid, r_add, near_surface: float,
@@ -56,13 +63,13 @@ def add_points(level: PointLevel, tile_index, gen: torch.Generator, rays_o,
     """Masked insertion of up to B ray locations x n_add points into
     ``level`` (in place).  Returns the number of locations added."""
     B = rays_o.shape[0]
-    pts_gt = rays_o + rays_d * gt_depth[:, None]
+    pts_gt = ray_points(rays_o, rays_d, gt_depth[:, None])
     D1, _ = K.knn_tiles(pts_gt, *tile_index, k=1, probe=32)
     keep = valid & (D1[:, 0] >= torch.square(r_add))
     t = torch.linspace(0.0, 1.0, n_add, device=rays_o.device)
     z_vals = near_surface * gt_depth[:, None] * (1 - t) \
         + far_surface * gt_depth[:, None] * t
-    pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
+    pts = ray_points(rays_o[:, None, :], rays_d[:, None, :], z_vals[..., None])
     C = level.geo.shape[1]
     geo_new = 0.1 * torch.randn((B, n_add, C), generator=gen,
                                 device=rays_o.device)

@@ -18,6 +18,7 @@ from hpslam_tpu import renderer as jR
 from hpslam_tpu.models import decoder as jDec
 from hpslam_tpu.ops import knn as jK
 from tests import test_engines as jte
+from tests.test_torch_lockstep import Replay, reference_adam_steps
 from hpslam_tpu_torch import convert
 from hpslam_tpu_torch import mapper as tM
 from hpslam_tpu_torch import renderer as tR
@@ -393,18 +394,24 @@ def test_union_cache_helpers_match_reference(rng):
     assert list(a) == list(b)
 
 
-@pytest.mark.parametrize("dense", [True, False], ids=["dense", "gather"])
-def test_track_frame_mm_bf16_matches_reference(rng, monkeypatch, dense):
-    """The plain tracker under model.mm_bf16 (the bf16 [geo | col] gather
-    table, the bf16 trunks) against the reference's track_frame with
+@pytest.mark.parametrize("dense,mm_bf16,stages", [
+    (True, True, 1), (False, True, 1), (True, False, 1), (False, False, 1),
+    (True, True, 4), (True, False, 4)],
+    ids=["dense", "gather", "dense-f32", "gather-f32", "dense-stages4",
+         "dense-f32-stages4"])
+def test_track_frame_mm_bf16_matches_reference(rng, monkeypatch, dense,
+                                               mm_bf16, stages):
+    """The plain tracker against the reference's track_frame with
     fused_track off, on the same weights, wall cloud, frame and pixel
     draws (the reference's own, from its key): the loss curve and the
-    selected pose at the reference's bf16 tolerances
-    (tests/test_engines.py: rtol / atol 1e-2, the pose to atol 1e-3), with
-    the dense cache and with the per-iteration gathers."""
+    selected pose, with the dense cache and with the per-iteration gathers,
+    one pixel set per stage or resample_stages = 4.  Under model.mm_bf16
+    (the bf16 [geo | col] gather table, the bf16 trunks) at the reference's
+    bf16 tolerances (tests/test_engines.py: rtol / atol 1e-2, the pose to
+    atol 1e-3); in f32 the loss to rtol 1e-3 and the pose to atol 1e-4."""
     from hpslam_tpu import tracker as jT
 
-    jcfg = small_cfg(mm_bf16=True)
+    jcfg = small_cfg(mm_bf16=mm_bf16)
     pj = jDec.init_nicer(jax.random.PRNGKey(0), jcfg)
     params = convert.params_from_numpy(jax.tree.map(np.asarray, pj))
     pos, count, geo, col = jte.wall_level(rng)
@@ -423,18 +430,32 @@ def test_track_frame_mm_bf16_matches_reference(rng, monkeypatch, dense):
     kw = dict(pixels=200, iters_mid=2, iters_fine=2, W=W, fx=fx, fy=fy,
               cx=cx, cy=cy, cam_lr=0.01, separate_lr=False,
               use_exposure=False, w_color=0.5, use_color=True,
-              handle_dynamic=True, dense_cache=dense)
+              handle_dynamic=True, dense_cache=dense,
+              resample_stages=stages)
     idx_j = jK.build_tiles(pos, count)
-    cam_j, _best_j, loss_j, _ = jT.track_frame(
-        pj, jcfg, jR.RenderConfig(sample_near_pcl=False),
-        jnp.asarray(cam0), key, jnp.asarray(color), jnp.asarray(depth),
-        jnp.asarray(rqm), jnp.asarray(rqm), jnp.asarray(pool),
-        jnp.int32(pool.size), pos, count, geo, col, idx_j, pos, count, geo,
-        col, idx_j, jnp.zeros(8), fused_track=False, **kw)
-    # the reference's pixel draws: one per stage (resample_stages 1)
+    with reference_adam_steps(jT.track_frame) as take:
+        cam_j, _best_j, loss_j, _ = jT.track_frame(
+            pj, jcfg, jR.RenderConfig(sample_near_pcl=False),
+            jnp.asarray(cam0), key, jnp.asarray(color), jnp.asarray(depth),
+            jnp.asarray(rqm), jnp.asarray(rqm), jnp.asarray(pool),
+            jnp.int32(pool.size), pos, count, geo, col, idx_j, pos, count,
+            geo, col, idx_j, jnp.zeros(8), fused_track=False, **kw)
+        steps = take()
+    if not mm_bf16:
+        # in f32 every Adam step starts from the reference's pose and
+        # moments (tests/test_torch_lockstep.py): free-running, the runs
+        # part beyond rtol 1e-3 within a few iterations, a rounding-level
+        # pose difference carried over a kink of the robust loss
+        def check(label, tree, ref_tree):
+            np.testing.assert_allclose(tree["cam"].numpy(), ref_tree["cam"],
+                                       atol=1e-4, err_msg=label)
+
+        monkeypatch.setattr(tOpt, "update", Replay(
+            steps, lambda tree: tree, check, own_step=True).update)
+    # the reference's pixel draws: one per sub-stage with iterations
     draws = iter([torch.tensor(np.asarray(jax.random.randint(
-        jax.random.fold_in(k, 0), (200,), 0, pool.size)), dtype=torch.int64)
-        for k in jax.random.split(key)])
+        jax.random.fold_in(k, s), (200,), 0, pool.size)), dtype=torch.int64)
+        for k in jax.random.split(key) for s in range(min(stages, 2))])
     monkeypatch.setattr(torch, "randint", lambda *a, **k: next(draws))
     level = (torch.tensor(np.asarray(pos)), int(count),
              torch.tensor(np.asarray(geo)), torch.tensor(np.asarray(col)))
@@ -447,6 +468,12 @@ def test_track_frame_mm_bf16_matches_reference(rng, monkeypatch, dense):
         idx_t, level, idx_t, torch.zeros(8), **kw)
     loss_j = np.asarray(loss_j)
     assert np.isfinite(loss_j).all() and loss_j.shape == (4,)
-    np.testing.assert_allclose(loss_t.numpy(), loss_j, rtol=1e-2, atol=1e-2)
-    np.testing.assert_allclose(cam_t.numpy(), np.asarray(cam_j), rtol=1e-2,
-                               atol=1e-3)
+    if mm_bf16:
+        np.testing.assert_allclose(loss_t.numpy(), loss_j, rtol=1e-2,
+                                   atol=1e-2)
+        np.testing.assert_allclose(cam_t.numpy(), np.asarray(cam_j),
+                                   rtol=1e-2, atol=1e-3)
+    else:
+        np.testing.assert_allclose(loss_t.numpy(), loss_j, rtol=1e-3)
+        np.testing.assert_allclose(cam_t.numpy(), np.asarray(cam_j),
+                                   atol=1e-4)
