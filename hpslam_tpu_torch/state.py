@@ -50,9 +50,12 @@ def grow_level(level: PointLevel, new_capacity: int) -> PointLevel:
 
 
 def ray_points(rays_o, rays_d, z):
-    """rays_o + rays_d * z rounded once, as a fused multiply-add rounds it
-    (the reference's XLA fuses the two): the product and the sum are exact
-    in float64 for float32 operands, then one rounding to float32."""
+    """rays_o + rays_d * z as a fused multiply-add rounds it (the
+    reference's XLA fuses the two), emulated in float64: the product of
+    float32 operands is exact there, the sum rounds once more, and the
+    result is rounded to float32.  That is the fused result in almost all
+    cases; where the sum's exponents lie far apart the two roundings can
+    differ from the fused one by a unit in the last place."""
     return (rays_o.double() + rays_d.double() * z.double()).float()
 
 
