@@ -167,14 +167,16 @@ Phases, each printed as one JSON line when it starts and when it ends:
            tensor cores at f32 accuracy (tc_bound_ms, 3xTF32), and #8's and
            #9's time on bf16 features (bf16_ms)
   band     (only when named in --phases) synth_tpu.yaml and
-           synth_noisy.yaml for all 30 frames at seeds 0-4 on the slam
-           and slam_fused paths: each ATE beside the reference's band
+           synth_noisy.yaml (--band-configs) for all 30 frames at seeds
+           0-4 (BAND_SEEDS, or --seeds) on the slam and slam_fused paths:
+           each ATE beside the reference's band
   quality  (only when named in --phases) repro_quality.sh on the port
-           at seeds 0, 1, 2 (QUALITY_SEEDS): synth_quality.yaml's 120
-           frames, its mesh at voxel 5/512 m against the culled GT box
-           (accuracy, completion, F-score), then synth_loop.yaml uncut with
-           its ATE before and after the end correction; beside the
-           reference's numbers (TPU history, one seed)
+           at seeds 0, 1, 2 (QUALITY_SEEDS, or --seeds): the 120 frames
+           of synth_quality.yaml, its mesh at voxel 5/512 m against the
+           culled GT box (accuracy, completion, F-score), then
+           synth_loop.yaml uncut with its ATE before and after the end
+           correction; beside the reference's numbers (TPU history, one
+           seed)
 
 The last line is {"ok": true, "device": {...}}, printed only when every
 phase passed; any failure exits non-zero.  Without CUDA, or without the
@@ -2200,14 +2202,16 @@ def run_slam(out_dir: str, name: str = "slam", profile: bool = False,
     return out, traj
 
 
-def run_band(out_dir: str) -> dict:
-    """synth_tpu.yaml and synth_noisy.yaml for all their 30 frames at the
-    seeds BAND_SEEDS, on the default (slam) and the slam_fused path: each
-    run's ATE, beside the reference's band.  Reports; holds no limit."""
+def run_band(out_dir: str, seeds=BAND_SEEDS, configs=tuple(BAND_CONFIGS)
+             ) -> dict:
+    """The BAND_CONFIGS named in ``configs`` for all their 30 frames at
+    ``seeds``, on the default (slam) and the slam_fused path: each run's
+    ATE, beside the reference's band.  Reports; holds no limit."""
     out = {"reference_cm": BAND_REFERENCE_CM, "runs": []}
-    for cfg_name, base in BAND_CONFIGS.items():
+    for cfg_name in configs:
+        base = BAND_CONFIGS[cfg_name]
         for path, additions in BAND_PATHS.items():
-            for seed in BAND_SEEDS:
+            for seed in seeds:
                 t0 = time.perf_counter()
                 s, _traj = run_slam(
                     out_dir, "band", tag=f"_{cfg_name}_{path}_{seed}",
@@ -3065,14 +3069,14 @@ def run_loop(out_dir: str) -> dict:
     return s
 
 
-def run_quality(out_dir: str) -> dict:
-    """repro_quality.sh on the port at each seed of QUALITY_SEEDS:
+def run_quality(out_dir: str, seeds=QUALITY_SEEDS) -> dict:
+    """repro_quality.sh on the port at each of ``seeds``:
     synth_quality.yaml's 120 frames, the mesh (voxel 5/512, every 5th
     frame), the culled GT and the metrics; then synth_loop.yaml uncut,
     with its ATE before and after the end correction.  Reports beside the
     reference's numbers; holds no limit but the mesh's sanity bound."""
     runs = []
-    for seed in QUALITY_SEEDS:
+    for seed in seeds:
         s, _traj = run_slam(out_dir, "quality", tag=f"_{seed}",
                             spec=(QUALITY_CFG, {}, (), ()), seed=seed,
                             keep=True, max_ate=None)
@@ -3389,6 +3393,11 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="repeat each SLAM run under torch.profiler and "
                          "report where the device time goes")
+    ap.add_argument("--seeds", type=int, nargs="+", default=None,
+                    help="the seeds of the band and quality phases "
+                         "(default: BAND_SEEDS, QUALITY_SEEDS)")
+    ap.add_argument("--band-configs", default=",".join(BAND_CONFIGS),
+                    help="the band phase's configs, comma-separated")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     import torch
@@ -3483,10 +3492,13 @@ def main(argv=None) -> int:
             emit({"repeat": run_repeat(out_dir, first_runs, served)})
     if "band" in phases:
         with phase("band", seconds):
-            emit({"band": run_band(out_dir)})
+            emit({"band": run_band(
+                out_dir, args.seeds or BAND_SEEDS,
+                args.band_configs.split(","))})
     if "quality" in phases:
         with phase("quality", seconds):
-            emit({"quality": run_quality(out_dir)})
+            emit({"quality": run_quality(out_dir,
+                                         args.seeds or QUALITY_SEEDS)})
     if "kernels" in phases:
         with phase("kernels", seconds):
             rows = []

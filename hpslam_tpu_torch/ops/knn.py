@@ -46,9 +46,43 @@ NARROW_FACTOR = 4
 # kernel 1: row top-k
 
 def topk_rows_plain(x: torch.Tensor, payload, k: int):
-    """k passes of first-occurrence argmin: (n, C) [+ payload (n, C)] ->
-    (values (n, k) ascending, selected (n, k) f32: payload values or column
-    indices)."""
+    """k passes of first-occurrence argmin (_topk_rows_passes): (n, C)
+    [+ payload (n, C)] -> (values (n, k) ascending, selected (n, k) f32:
+    payload values or column indices).  Rows with k entries below BIG and
+    no NaN or sign bit take torch.topk instead, which picks the same k
+    values; where equal values meet among them or at the k-th (ties, which
+    torch.topk may pick or order apart), the entries below the k-th value
+    and the first entries equal to it (by column) up to k, in column
+    order, then a stable sort by value: the passes' picks and order."""
+    n, C = x.shape
+    D, cols = torch.topk(x, k, dim=1, largest=False, sorted=True)
+    tie = (D[:, 1:] == D[:, :-1]).any(1) | ((x <= D[:, -1:]).sum(1) > k)
+    if bool(tie.any()):
+        xt = x[tie]
+        vk = D[tie][:, -1:]
+        below = xt < vk
+        tied = xt == vk
+        take = below | (tied & (torch.cumsum(tied, 1)
+                                <= k - below.sum(1, keepdim=True)))
+        iota = torch.arange(C, device=x.device).expand(xt.shape[0], C)
+        # (fewer than k taken only on rows the passes take below)
+        tc = torch.topk(torch.where(take, iota, C), k, dim=1, largest=False,
+                        sorted=True).values.clamp(max=C - 1)
+        Dt, order = torch.sort(torch.gather(xt, 1, tc), dim=1, stable=True)
+        D[tie], cols[tie] = Dt, torch.gather(tc, 1, order)
+    sel = (cols.to(torch.float32) if payload is None
+           else torch.gather(payload, 1, cols))
+    rest = ~((D[:, -1] < BIG)
+             & ~(torch.isnan(x) | torch.signbit(x)).any(1))
+    if bool(rest.any()):
+        D[rest], sel[rest] = _topk_rows_passes(
+            x[rest], None if payload is None else payload[rest], k)
+    return D, sel
+
+
+def _topk_rows_passes(x: torch.Tensor, payload, k: int):
+    """topk_rows_plain's definition: k passes of first-occurrence argmin,
+    each masking its pick with BIG."""
     n, C = x.shape
     x = x.clone()
     iota = torch.arange(C, device=x.device).expand(n, C)

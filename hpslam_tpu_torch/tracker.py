@@ -101,8 +101,7 @@ def track_frame(params, mcfg: Dec.ModelConfig, rcfg: RenderConfig,
                                      else None)
 
     def stage_inputs(r_query_map):
-        ids = pool[torch.randint(0, pool_len, (pixels,), generator=gen,
-                                 device=dev)]
+        ids = Samp.sample_indices(gen, pool[:pool_len], pixels)
         i = (ids % W).float()
         j = torch.div(ids, W, rounding_mode="floor")
         jj, ii = j, ids % W

@@ -3,7 +3,8 @@
 (``hpslam_tpu_torch``) beside the JAX reference (``hpslam_tpu``).
 
     python orbit_compare.py --out DIR [--scenario orbit] [--seeds 0 1 2] \
-        [--impl port reference] [--jobs 3]
+        [--impl port reference] [--jobs 3] [--route {plain,fused}]
+    python orbit_compare.py --summary DIR_OR_FILE [...]
 
 Scenarios (``--scenario``):
 
@@ -13,17 +14,37 @@ Scenarios (``--scenario``):
   tracking 2000 px x 60 iterations, mapping 4000 px x 150) with
   ``synthetic.n_frames`` 15 for 30.  The synthetic orbit spans a quarter
   turn whatever the frame count, so this is the same orbit in 15 frames,
-  about 12.6 cm a frame for 6.3; nothing else is cut.  (``synth_quality.yaml``
-  differs from ``synth_tpu.yaml`` only in its frame count, so no frame
-  count gives a cut of it: at 15 frames it is this scenario.)
+  about 12.6 cm a frame for 6.3; nothing else is cut.
+* ``synth_quality``: ``configs/Synthetic/synth_quality.yaml`` uncut (120
+  frames).  It differs from ``synth_tpu.yaml`` only in its frame count, so
+  no frame count gives a cut of it: at 15 frames it is ``synth_tpu``.
 
-The synthetic scenario reads no files: both readers render the room.  The
-cut is applied to both implementations alike.  ``--plain`` sets
-``model.fused_mlp`` and ``model.fused_composite`` off for both: the route
-the reference's 'auto' takes on the CPU, where the port's 'auto' takes its
-fused route (on the CPU the kernels' plain versions), which, as the
-reference's fused route, keeps the colour decoder's Fourier matrix fixed
-while the plain route trains it.
+The synthetic scenarios read no files: both readers render the room.  The
+cut is applied to both implementations alike.  ``--route plain`` (or
+``--plain``) sets ``model.fused_mlp`` and ``model.fused_composite`` off for
+both: the route the reference's 'auto' takes on the CPU, where the port's
+'auto' takes its fused route (on the CPU the kernels' plain versions),
+which, as the reference's fused route, keeps the colour decoder's Fourier
+matrix fixed while the plain route trains it.  ``--route fused`` sets both
+on for both: the reference then runs its Pallas kernels in interpret mode
+(about 0.5 s a mapping iteration and 10 s a tracked frame on the CPU).
+Without ``--route`` each takes its 'auto'.
+
+Each run's record is also appended, with its scenario and route, to
+``runs.jsonl`` in ``--out``, so that seeds may be gathered over several
+invocations.  ``--summary`` reads such files (or the ``runs.jsonl`` of the
+directories named) and, for each scenario and route, compares the two
+implementations' ATEs at the seeds both have (``compare``): the difference
+of means, port - reference, with a 95 % bootstrap interval (10,000
+resamples, a fixed seed), and a two-sided Mann-Whitney U p-value.  The
+verdict: ``closed`` where the interval's upper end lies below +0.35 cm;
+``fault`` where the interval lies wholly above 0 and p < 0.05; ``open``
+otherwise, with the seeds a side that would put the interval's half-width
+under the distance from the difference to the nearer of those two
+verdicts, at the same spread.
+It also reads ``band_run`` lines of ``chip_smoke.py`` (``slam_fused``
+against ``slam``) and reports each implementation's fused route against
+its plain one the same way.
 
 It is a comparison of the two implementations, as the tests are, and not
 an entry point of either: the reference runs on the CPU only, so the port
@@ -53,6 +74,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -65,11 +87,19 @@ RADIUS = 1.2
 SCALE = 4
 CUTS = {"tracking": {"iters": 30, "ignore_edge_W": 5, "ignore_edge_H": 5},
         "mapping": {"iters": 60, "iters_first": 150, "geo_iter_first": 40}}
-# the synthetic scenario: (config, cuts), the frame count cut only
+# the synthetic scenarios: (config, cuts), the frame count cut only
 SYNTHETIC = {
     "synth_tpu": ("configs/Synthetic/synth_tpu.yaml",
                   {"synthetic": {"n_frames": 15}}),
+    "synth_quality": ("configs/Synthetic/synth_quality.yaml", {}),
 }
+ROUTES = {"plain": False, "fused": True}
+# --summary's pairs: implementation -> the one it is held against
+PAIRS = {"port": "reference", "slam_fused": "slam"}
+# the rule (--summary): closed below this upper end of the interval, in cm
+CLOSE_CM = 0.35
+BOOT_RESAMPLES, BOOT_SEED = 10_000, 0
+_LOG_LOCK = threading.Lock()
 
 
 def write_tree(folder: str) -> dict:
@@ -91,7 +121,7 @@ def write_tree(folder: str) -> dict:
 
 
 def write_config(path: str, scenario: str, seed: int, output: str,
-                 cam=None, tree=None, plain: bool = False):
+                 cam=None, tree=None, route=None):
     if scenario == "orbit":
         cfg = {"inherit_from": CONFIG, "seed": int(seed), "cam": cam,
                "data": {"input_folder": tree, "output": output}, **CUTS}
@@ -99,8 +129,9 @@ def write_config(path: str, scenario: str, seed: int, output: str,
         base, cuts = SYNTHETIC[scenario]
         cfg = {"inherit_from": base, "seed": int(seed),
                "data": {"output": output}, **cuts}
-    if plain:
-        cfg["model"] = {"fused_mlp": False, "fused_composite": False}
+    if route is not None:
+        on = ROUTES[route]
+        cfg["model"] = {"fused_mlp": on, "fused_composite": on}
     with open(path, "w") as f:
         yaml.safe_dump(cfg, f)
 
@@ -126,11 +157,11 @@ def ate_of(output: str):
 
 
 def run_one(impl: str, seed: int, out: str, scenario: str, cam=None,
-            tree=None, plain: bool = False) -> dict:
+            tree=None, route=None) -> dict:
     output = os.path.join(out, f"{impl}_s{seed}")
     os.makedirs(output, exist_ok=True)
     cfg_path = os.path.join(out, f"{impl}_s{seed}.yaml")
-    write_config(cfg_path, scenario, seed, output, cam, tree, plain)
+    write_config(cfg_path, scenario, seed, output, cam, tree, route)
     cmd, env = command(impl, cfg_path)
     t0 = time.perf_counter()
     with open(os.path.join(output, "log.txt"), "w") as log:
@@ -140,21 +171,126 @@ def run_one(impl: str, seed: int, out: str, scenario: str, cam=None,
            "seconds": time.perf_counter() - t0,
            "ate_rmse_m": ate_of(output) if rc == 0 else None}
     print(json.dumps(rec), flush=True)
+    with _LOG_LOCK, open(os.path.join(out, "runs.jsonl"), "a") as f:
+        f.write(json.dumps(dict(rec, scenario=scenario, route=route)) + "\n")
     return rec
+
+
+def compare(a, b) -> dict:
+    """ATEs ``a`` against ``b`` (cm, the same seeds): the difference of
+    means a - b with its 95 % bootstrap interval (each side resampled
+    apart, BOOT_RESAMPLES times from BOOT_SEED), the two-sided Mann-Whitney
+    U p-value and the rule's verdict."""
+    import numpy as np
+    from scipy.stats import mannwhitneyu
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    g = np.random.default_rng(BOOT_SEED)
+    boot = (a[g.integers(0, len(a), (BOOT_RESAMPLES, len(a)))].mean(1)
+            - b[g.integers(0, len(b), (BOOT_RESAMPLES, len(b)))].mean(1))
+    lo, hi = (float(x) for x in np.percentile(boot, [2.5, 97.5]))
+    diff = float(a.mean() - b.mean())
+    p = float(mannwhitneyu(a, b, alternative="two-sided").pvalue)
+    if hi < CLOSE_CM:
+        verdict, seeds = "closed", None
+    elif lo > 0 and p < 0.05:
+        verdict, seeds = "fault", None
+    else:
+        # seeds a side that would bring the half-width under the distance
+        # from the difference to the verdict it is nearer to reaching
+        # (below CLOSE_CM, or wholly above 0), at this spread; the
+        # half-width falls as one over the root of the count
+        margin = max(m for m in (CLOSE_CM - diff, diff, 1e-3) if m > 0)
+        verdict = "open"
+        seeds = int(np.ceil(len(a) * ((hi - lo) / 2 / margin) ** 2))
+    return {"n": [len(a), len(b)], "mean": [float(a.mean()),
+                                            float(b.mean())],
+            "sd": [float(a.std(ddof=1)), float(b.std(ddof=1))],
+            "diff_cm": diff, "ci95_cm": [lo, hi], "mannwhitney_p": p,
+            "verdict": verdict, "seeds_a_side_to_decide": seeds}
+
+
+def read_runs(paths) -> list:
+    """(scenario, route, impl, seed, ate cm) from orbit_compare records
+    (files, or directories holding runs.jsonl) and chip_smoke band_run
+    lines (impl the smoke's path, route None)."""
+    rows = []
+    for p in paths:
+        if os.path.isdir(p):
+            p = os.path.join(p, "runs.jsonl")
+        with open(p) as f:
+            for line in f:
+                try:
+                    r = json.loads(line)
+                except ValueError:
+                    continue
+                if not isinstance(r, dict):
+                    continue
+                if "band_run" in r:
+                    b = r["band_run"]
+                    rows.append(("band:" + b["config"], None, b["path"],
+                                 b["seed"], b["ate_cm"]))
+                elif "impl" in r and r.get("ate_rmse_m") is not None:
+                    rows.append((r.get("scenario"), r.get("route"),
+                                 r["impl"], r["seed"],
+                                 100 * r["ate_rmse_m"]))
+    return rows
+
+
+def summary(paths) -> list:
+    """For each scenario and route, each pair of implementations compared
+    at their common seeds (port - reference, slam_fused - slam); for each
+    scenario and implementation its fused route against its plain one.
+    A seed run twice keeps its last record."""
+    runs = {}
+    for scen, route, impl, seed, ate in read_runs(paths):
+        runs.setdefault((scen, route, impl), {})[seed] = ate
+    out = []
+
+    def add(kind, key, a, b, names):
+        seeds = sorted(set(a) & set(b))
+        if len(seeds) >= 2:
+            out.append(dict({"compare": kind, "scenario": key[0],
+                             "route_or_impl": key[1], "a_minus_b": names,
+                             "seeds": seeds},
+                            **compare([a[s] for s in seeds],
+                                      [b[s] for s in seeds])))
+
+    for (scen, route, impl), a in sorted(runs.items(), key=str):
+        other = PAIRS.get(impl)
+        if (scen, route, other) in runs:
+            add("packages", (scen, route), a, runs[(scen, route, other)],
+                [impl, other])
+        if route == "fused" and (scen, "plain", impl) in runs:
+            add("routes", (scen, impl), a, runs[(scen, "plain", impl)],
+                ["fused", "plain"])
+    return out
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--out", required=True)
+    p.add_argument("--out")
+    p.add_argument("--summary", nargs="+", metavar="PATH",
+                   help="compare the runs recorded in these files or "
+                        "directories by the rule and exit")
     p.add_argument("--scenario", default="orbit",
                    choices=["orbit"] + sorted(SYNTHETIC))
     p.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2])
     p.add_argument("--impl", nargs="+", default=["port", "reference"],
                    choices=["port", "reference"])
     p.add_argument("--jobs", type=int, default=3)
+    p.add_argument("--route", choices=sorted(ROUTES),
+                   help="model.fused_mlp and fused_composite off (plain) "
+                        "or on (fused) for both; default each one's auto")
     p.add_argument("--plain", action="store_true",
-                   help="model.fused_mlp and fused_composite off for both")
+                   help="the same as --route plain")
     args = p.parse_args(argv)
+    if args.summary:
+        for line in summary(args.summary):
+            print(json.dumps(line))
+        return 0
+    if not args.out:
+        p.error("--out is required")
+    route = "plain" if args.plain else args.route
     out = os.path.abspath(args.out)
     cam = tree = None
     if args.scenario == "orbit":
@@ -164,7 +300,7 @@ def main(argv=None) -> int:
     with ThreadPoolExecutor(args.jobs) as ex:
         recs = list(ex.map(lambda j: run_one(j[0], j[1], out,
                                              args.scenario, cam, tree,
-                                             args.plain), jobs))
+                                             route), jobs))
     print(json.dumps({impl: {r["seed"]: r["ate_rmse_m"] for r in recs
                              if r["impl"] == impl} for impl in args.impl}))
     return 0 if all(r["rc"] == 0 for r in recs) else 1

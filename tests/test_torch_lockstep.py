@@ -69,9 +69,11 @@ differences.
 The tracker's host helpers (initial pose, pixel pools, radii, the
 quaternion sign gauge) are held bit for bit below the lockstep cases.
 """
+import builtins
 import contextlib
 import copy
 import json
+import math
 from types import SimpleNamespace
 
 import jax
@@ -89,6 +91,7 @@ from hpslam_tpu.ops import optim as jOpt
 from hpslam_tpu_torch import convert
 from hpslam_tpu_torch import mapper as tM
 from hpslam_tpu_torch import tracker as tT
+from hpslam_tpu_torch.models import decoder as tDec
 from hpslam_tpu_torch.ops import fused_mlp as tFM
 from hpslam_tpu_torch.ops import knn as tK
 from hpslam_tpu_torch.ops import optim as tOpt
@@ -113,8 +116,21 @@ GRAD_LEAF_MAX = 2e-3
 # turns a rounding-level gradient into a step of the learning rate's size)
 OWN_STEP_GRAD_SHARE = 1e-2
 # a mapped frame's steps at which one ray sits at the L1 colour loss's kink
-# (kink_ray: that ray's rows and the decoder leaves are not held there)
+# (kink_ray: that ray's rows and the decoder leaves are not held there); a
+# tracked frame's steps at which one pixel's colour residual does
+# (kink_pixel: the pose step held with that term's sign as the reference's)
 MAX_KINK_STEPS = 1
+# a colour residual this near zero may take either sign in the two packages
+# (their rendered colours part by rounding: FMAs, summation order)
+COLOR_KINK_ATOL = 1e-5
+# kink_pixel: the part of the pose gradient's difference that flipping one
+# pixel's colour term leaves unexplained, relative to the difference, and
+# how near the flip's size must be to 2 w_color times its draws
+KINK_FIT_RTOL = 1e-2
+# a mapped frame's steps at which the port's own step on a decoder leaf
+# parts where the leaf's gradient is set by the Fourier projection's
+# rounding (projection_witness: that leaf's step not held there)
+MAX_ROUNDING_STEPS = 1
 # free running, the port parts from the reference by at most this many
 # times as far as a one-ulp nudge parts the reference from itself (the same
 # order of magnitude)
@@ -124,6 +140,8 @@ KNN_RTOL = 1e-6                     # squared distances summed with FMAs
 CONST_ATOL = 1e-6                   # rays_d summed in another order
 # the port's functions the replay wraps, as imported
 ADAM_STEP = tOpt.update
+TREE_LEAVES = tOpt.tree_leaves
+OPTIMISE = tM.optimise
 SELECT_TILES = tK.select_tiles
 UNION_CACHE = tM.build_pixel_union_cache
 SAMPLES = tM.pixel_samples
@@ -213,11 +231,37 @@ def reference_adam_steps(*jitted):
             fn.clear_cache()
 
 
-def _run_reference(cfg):
+def overlap_scores(record):
+    """``sorted`` for a mapper module's globals: hands the (keyframe,
+    overlap score) pairs that keyframe_selection_overlap ranks (the only
+    call there that sorts pairs by a key) to ``record`` and sorts as the
+    builtin does."""
+    def spy(iterable, *args, **kwargs):
+        items = list(iterable)
+        if (kwargs.get("key") is not None and items
+                and all(isinstance(x, tuple) and len(x) == 2
+                        for x in items)):
+            record([(int(k), float(v)) for k, v in items])
+        return builtins.sorted(items, *args, **kwargs)
+    return spy
+
+
+def tile_shapes(npc) -> dict:
+    """Each level's tile index as (tiles, tile size): the index the next
+    search of the level uses (built here where stale, as the search would
+    build it)."""
+    return {name: (int(npc.index(name)[0].shape[0]),
+                   int(npc.index(name)[0].shape[1]) // 4)
+            for name in npc.levels}
+
+
+def _run_reference(cfg, nudge: bool = True):
     """PointSLAM.run with every track and map call's inputs, outputs, loss
-    curves and Adam steps recorded."""
+    curves and Adam steps recorded, and the order of the calls; with
+    nudge, each tracked frame also rerun from a start pose one ulp away
+    (nudged_track)."""
     from hpslam_tpu.slam import PointSLAM
-    tracks, maps = {}, {}
+    tracks, maps, order = {}, {}, []
     inner: dict = {}
     orig_track, orig_map = jT.Tracker.track, jM.Mapper.map
     orig_track_frame = jT.track_frame
@@ -272,11 +316,13 @@ def _run_reference(cfg):
                        pool=np.asarray(call["args"][9])[
                            :int(call["args"][10])],
                        best_cam=np.asarray(best_cam),
-                       losses=np.asarray(losses), steps=steps(),
-                       nudged=nudged_track(call))
-            steps()                     # the nudged run's steps
-        rec.update(c2w=c2w, info=info)
+                       losses=np.asarray(losses), steps=steps())
+            if nudge:
+                rec["nudged"] = nudged_track(call)
+                steps()                 # the nudged run's steps
+        rec.update(c2w=c2w, info=info, tiles=tile_shapes(npc))
         tracks[idx] = rec
+        order.append(("track", idx))
         return c2w, info, op
 
     def map_(self, idx, frame, npc, params, exposure_feat, key, c2w,
@@ -308,8 +354,10 @@ def _run_reference(cfg):
                    caches=[_np(c["out"]) for c in inner.get("union_cache",
                                                             [])],
                    cache_knn=[c["knn"] for c in inner.get("union_cache", [])],
-                   inserted=inner.get("inserted"))
+                   inserted=inner.get("inserted"),
+                   overlap=inner.get("overlap"), tiles=tile_shapes(npc))
         maps[idx] = rec
+        order.append(("map", idx))
         return out
 
     jitted = (jT.track_frame, jM.map_scan, jM.build_pixel_union_cache,
@@ -324,17 +372,96 @@ def _run_reference(cfg):
         mp.setattr(jM, "map_scan", _record(inner, "map_scan", jM.map_scan))
         mp.setattr(jM, "build_pixel_union_cache", union_cache)
         mp.setattr(jK, "knn_tiles", knn)
-        PointSLAM(cfg).run()
-    return tracks, maps
+        mp.setattr(jM, "sorted", overlap_scores(
+            lambda pairs: inner.setdefault("overlap", []).append(pairs)),
+            raising=False)
+        slam = PointSLAM(cfg)
+        slam.run()
+    return tracks, maps, order, list(slam.mapper.keyframe_list)
 
 
-def recorded_reference(tmp_path_factory, fused: bool) -> dict:
-    """The reference's tiny run on the plain or the fused union route,
-    recorded (_run_reference)."""
-    cfg = tiny_cfg(tmp_path_factory.mktemp("ref"))
+def window_cfg(tmp_path):
+    """tiny_cfg lengthened only as far as a whole run's window code needs:
+    12 frames, every 2nd frame mapped and registered as a keyframe, the
+    window of synth_room.yaml (5 frames: mapped frame 10 ranks keyframes
+    0, 2, 4 and 6 by overlap for three slots), and a point capacity of 4096
+    a level, which each level outgrows during the run."""
+    cfg = tiny_cfg(tmp_path)
+    cfg["synthetic"]["n_frames"] = 12
+    cfg["mapping"].update(every_frame=2, keyframe_every=2,
+                          mapping_window_size=5)
+    cfg["pointcloud"]["initial_capacity"] = 4096
+    return cfg
+
+
+def recorded_reference(tmp_path_factory, fused: bool, make_cfg=tiny_cfg,
+                       nudge: bool = True) -> dict:
+    """The reference's run of make_cfg (tiny_cfg: the tiny 7-frame run) on
+    the plain or the fused union route, recorded (_run_reference)."""
+    cfg = make_cfg(tmp_path_factory.mktemp("ref"))
     cfg["model"].update(fused_mlp=fused, fused_composite=fused)
-    tracks, maps = _run_reference(cfg)
-    return {"cfg": cfg, "tracks": tracks, "maps": maps}
+    tracks, maps, order, keyframes = _run_reference(cfg, nudge)
+    return {"cfg": cfg, "tracks": tracks, "maps": maps, "order": order,
+            "keyframe_list": keyframes}
+
+
+def check_window_coverage(reference, tracked, mapped):
+    """What a long-window run must reach, asserted on the recorded
+    reference: a mapped frame whose overlap ranking finds more earlier
+    keyframes than mapping_window_size - 2 and keeps that many (the
+    ranking truncated); a window of mapping_window_size frames; each
+    level's capacity grown beyond pointcloud.initial_capacity before a
+    replayed frame.  And the replayed frames (tracked, mapped) include
+    every tracked frame after the first growth and every mapped frame with
+    two or more candidate keyframes."""
+    cfg = reference["cfg"]
+    win = cfg["mapping"]["mapping_window_size"]
+    cap0 = cfg["pointcloud"]["initial_capacity"]
+    maps, tracks = reference["maps"], reference["tracks"]
+    truncated = [i for i, r in maps.items() if r["overlap"]
+                 and sum(sc > 0 for _k, sc in r["overlap"][0]) > win - 2
+                 and len(r["info"]["window"]) == win]
+    assert truncated, {i: r["overlap"] for i, r in maps.items()}
+    assert any(len(r["info"]["window"]) == win for r in maps.values())
+    grown = lambda rec: {n for n, lv in rec["levels"].items()
+                         if lv["capacity"] > cap0}
+    replayed = ([tracks[i] for i in tracked]
+                + [maps[i] for i in mapped])
+    assert set().union(*map(grown, replayed)) == set(cfg["pointcloud"][
+        "radius_hierarchy"]), "a level never grew before a replayed frame"
+    after_growth = {i for i, r in tracks.items() if i >= 2 and grown(r)}
+    assert after_growth <= set(tracked), sorted(after_growth - set(tracked))
+    ranked = {i for i, r in maps.items() if len(r["keyframe_list"]) - 1 >= 2}
+    assert ranked <= set(mapped), sorted(ranked - set(mapped))
+
+
+def check_schedule(reference, tmp_path_factory):
+    """The port's run loop (slam.py) on the reference's recorded engine
+    outputs: the engines stubbed to return what the reference's returned
+    at each frame, the port's loop must track and map the same frames in
+    the same order as the reference's, hand each map the same pose, and
+    register the same keyframes (each map call sees the reference's
+    keyframe list at that call, the run ends with its final list)."""
+    slam = port_slam(reference, tmp_path_factory)
+    order = []
+
+    def track(idx, frame, npc, params, expo, est, gt_c2w):
+        order.append(("track", idx))
+        rec = reference["tracks"][idx]
+        return rec["c2w"], rec["info"], None
+
+    def map_(idx, frame, npc, params, expo, c2w, color_refine=False):
+        order.append(("map", idx))
+        rec = reference["maps"][idx]
+        assert slam.mapper.keyframe_list == rec["keyframe_list"], idx
+        np.testing.assert_array_equal(c2w, rec["c2w"])
+        return params, expo, rec["info"]
+
+    slam.tracker.track = track
+    slam.mapper.map = map_
+    slam.run()
+    assert order == reference["order"]
+    assert slam.mapper.keyframe_list == reference["keyframe_list"]
 
 
 def port_slam(reference, tmp_path_factory):
@@ -513,6 +640,10 @@ class Replay:
             _close(f"step {i} Adam {path}", t.numpy(), _get(ref_new, path),
                    0, ADAM_ATOL)
         new_p, _ = ADAM_STEP(grads, state, params, lr, *a, **kw)
+        # the port's own step on another gradient (kink_pixel's), and the
+        # parameters the gradient was taken at (projection_witness)
+        self.restep = lambda g: ADAM_STEP(g, state, params, lr, *a, **kw)[0]
+        self.step_params = params
         self.own_step(f"step {i}", new_p, ref_new, ref_g, grads)
         return _to_port(params, ref_new), _to_port(state, {
             "m": self.nested(ref["new_state"]["m"]),
@@ -579,6 +710,75 @@ def tracker_draws(key, pool_len: int, pixels: int, iters: int,
     return out
 
 
+class ColourTerms:
+    """Stands in for tracker.py's ``torch`` during a tracked frame: each
+    loss evaluation's colour residuals (c_gt - colour, (n, 3)) within
+    COLOR_KINK_ATOL of zero, each with its gradient on the optimised
+    leaves, taken before the step's backward frees the graph (the leaves
+    from ops.optim.tree_leaves, which the tracker calls on them first).
+    Everything else is torch's."""
+
+    def __init__(self, w_color: float):
+        self.w_color = w_color
+        self.leaves = []
+        self.near = []      # [(residual, rows, gradient per leaf)]
+
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+    def tree_leaves(self, tree):
+        self.leaves = TREE_LEAVES(tree)
+        return self.leaves
+
+    def abs(self, x, *args, **kwargs):
+        if x.dim() == 2 and x.shape[1] == 3 and x.requires_grad:
+            self.near = []
+            groups: dict = {}
+            xd = x.detach()
+            for p, c in torch.nonzero(xd.abs() < COLOR_KINK_ATOL):
+                # a pixel drawn several times: rows with the same residual
+                groups.setdefault((int(c), float(xd[p, c])), []).append(
+                    int(p))
+            for (c, r), rows in groups.items():
+                g = torch.autograd.grad(x[rows[0], c], self.leaves,
+                                        retain_graph=True, allow_unused=True)
+                self.near.append((r, rows, [
+                    np.zeros(tuple(t.shape)) if d is None
+                    else d.numpy().astype(np.float64)
+                    for t, d in zip(self.leaves, g)]))
+        return torch.abs(x, *args, **kwargs)
+
+    def kink_pixel(self, grads, ref_g):
+        """The colour term (residual, rows) whose sign, taken the other way,
+        explains the port's gradient's difference from the reference's:
+        the difference along that term's gradient v within KINK_FIT_RTOL,
+        and its size 2 w_color v times a count of the pixel's draws within
+        KINK_FIT_RTOL.  Returns (residual, rows, the gradient with the
+        reference's sign of the term) or None."""
+        g = [np.zeros_like(np.asarray(_get(ref_g, path), np.float64))
+             if t is None else t.numpy().astype(np.float64)
+             for path, t in _leaves(grads)]
+        d = np.concatenate([(a - np.asarray(_get(ref_g, path))).ravel()
+                            for a, (path, _t) in zip(g, _leaves(grads))])
+        for r, rows, v in self.near:
+            vf = np.concatenate([a.ravel() for a in v])
+            if not vf.any():
+                continue
+            alpha = float(d @ vf / (vf @ vf))
+            draws = abs(alpha) / (2 * self.w_color)
+            m = round(draws)
+            if not (1 <= m <= len(rows)
+                    and abs(draws - m) <= KINK_FIT_RTOL * m
+                    and np.linalg.norm(d - alpha * vf)
+                    <= KINK_FIT_RTOL * np.linalg.norm(d)):
+                continue
+            flip = np.sign(alpha) * 2 * self.w_color * m
+            return r, rows, tOpt.tree_unflatten(
+                grads, [torch.as_tensor(a - flip * b, dtype=torch.float32)
+                        for a, b in zip(g, v)])
+        return None
+
+
 @pytest.mark.parametrize("idx", TRACKED)
 def test_tracking_in_lockstep(reference, port, idx):
     check_tracking(reference, port, idx)
@@ -608,9 +808,26 @@ def check_tracking(reference, port, idx):
             _close(f"frame {idx} {label} {path}", a.numpy(),
                    _get(ref_tree, path), 0, POSE_ATOL)
 
-    replay = Replay(rec["steps"], lambda tree: tree, check,
-                    lambda label, new_p, ref_new, *_g: check(label, new_p,
-                                                             ref_new))
+    terms = ColourTerms(t["w_color_loss"])
+    kinks = []
+
+    def own_step(label, new_p, ref_new, ref_g, grads):
+        """The port's own pose step; where it parts, a pixel's colour term
+        at the L1 kink (kink_pixel) may explain it: then the step on the
+        gradient with that term's sign as the reference's is held."""
+        n = len(pose_diffs)
+        try:
+            check(label, new_p, ref_new)
+        except AssertionError:
+            kink = terms.kink_pixel(grads, ref_g)
+            if kink is None:
+                raise
+            del pose_diffs[n:]
+            kinks.append({"step": replay.n_steps - 1, "residual": kink[0],
+                          "draws": len(kink[1])})
+            check(f"{label} (kink pixel)", replay.restep(kink[2]), ref_new)
+
+    replay = Replay(rec["steps"], lambda tree: tree, check, own_step)
     replay.randint_rules.append(
         (lambda high, size: high == len(rec["pool"])
          and size == (t["pixels"],), lambda high, size: next(draws)))
@@ -626,9 +843,12 @@ def check_tracking(reference, port, idx):
         mp.setattr(tK, "knn_tiles", knn)
         mp.setattr(tT, "track_frame",
                    _record(got, "track_frame", tT.track_frame))
+        mp.setattr(tT, "torch", terms)
+        mp.setattr(tOpt, "tree_leaves", terms.tree_leaves)
         c2w, _info, _op = slam.tracker.track(
             idx, frame, slam.npc, slam.params, expo, slam.estimate_c2w_list,
             frame.c2w)
+    assert len(kinks) <= MAX_KINK_STEPS, kinks
     assert next(draws, None) is None, "draws left over"
     assert replay.n_steps == len(rec["steps"]) == t["iters"]
     (call,) = got["track_frame"]
@@ -640,10 +860,12 @@ def check_tracking(reference, port, idx):
     _close(f"frame {idx} best pose", best_cam.numpy(), rec["best_cam"], 0,
            POSE_ATOL)
     _close(f"frame {idx} c2w", c2w, rec["c2w"], 0, POSE_ATOL)
+    assert tile_shapes(slam.npc) == rec["tiles"], \
+        f"frame {idx} tile index {tile_shapes(slam.npc)} {rec['tiles']}"
     own, ref = np.mean(recall, axis=0)
     report("track", idx, losses.numpy(), rec["losses"], replay,
            pose_abs_max=max(pose_diffs), search_recall_port=own,
-           search_recall_reference_tiles=ref)
+           search_recall_reference_tiles=ref, kink_pixels=kinks)
 
 
 def test_free_running_parts_as_the_reference_from_itself(reference, port):
@@ -775,6 +997,50 @@ def inserted_agrees(npc, ref_levels):
             _close(f"inserted {name}.{k}", getattr(lv, k)[:n].numpy(),
                    ref[k][:n], 0, FEAT_ATOL)
             getattr(lv, k)[:n] = torch.as_tensor(ref[k][:n])
+
+
+def projection_rounded_once(x, B):
+    """The Fourier projection (2 pi x) @ B in float64, rounded once to f32:
+    another rounding of the same projection."""
+    return torch.matmul(x.double() * (2.0 * math.pi), B.double()).float()
+
+
+def projection_witness(stage_call, params, grads, ref_g, key) -> dict:
+    """Whether the Fourier projection's rounding sets the gradient leaf
+    ``key`` as far as the port parts from the reference there: the step's
+    gradient taken again by the port's own stage loss (stage_call, the
+    last (stage_loss, fid, slot, with_color) of mapper.optimise) at the
+    step's parameters with the projection rounded once
+    (projection_rounded_once) instead of in the port's fixed order.  The
+    projection reaches 1e3 radians (a unit in the last place there is
+    6e-5 rad), and the reference's XLA rounds it as its dot rounds.  A
+    witness where the rounding moves the leaf by at least 1 /
+    FREE_RUN_FACTOR of the port's part from the reference."""
+    stage_loss, fid, slot, with_color = stage_call
+    op = tOpt.tree_map(lambda t: t.detach().clone().requires_grad_(), params)
+    leaves = TREE_LEAVES(op)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tDec, "fourier_proj", projection_rounded_once)
+        mp.setattr(tFM, "fourier_proj", projection_rounded_once)
+        total = stage_loss(op, fid, slot, with_color)[0]
+    alt = tOpt.tree_unflatten(op, torch.autograd.grad(total, leaves,
+                                                      allow_unused=True))
+
+    def leaf(tree):
+        for path, g in _leaves(tree):
+            if g is None:
+                continue
+            g = g.numpy() if isinstance(g, torch.Tensor) else np.asarray(g)
+            for label, a in _grad_groups(path, g):
+                if label == key:
+                    return a.astype(np.float64)
+        raise KeyError(key)
+
+    g, g_ref, g_alt = leaf(grads), leaf(ref_g), leaf(alt)
+    part = float(np.linalg.norm(g - g_ref))
+    moved = float(np.linalg.norm(g_alt - g))
+    return {"leaf": key, "part": part, "rounding_moves": moved,
+            "witness": moved * FREE_RUN_FACTOR >= part}
 
 
 def mapper_replay(rec, check, npc, own_step) -> Replay:
@@ -926,6 +1192,7 @@ def check_mapping(reference, port, idx):
 
     got: dict = {}
     held, leaf_errors, kinks, kink_parts = [], [], [], []
+    rounding = []       # steps whose decoder step projection_witness explains
 
     def kink_ray(grads, ref_g):
         """The feature rows of the one ray (its union) that holds every
@@ -985,19 +1252,43 @@ def check_mapping(reference, port, idx):
                 mask = g >= OWN_STEP_GRAD_SHARE * g.max()
                 if rows is not None and key == "feat.col":
                     mask[rows] = False
-                _close(f"frame {idx} {label} own {key}", a[mask], b[mask],
-                       FEAT_RTOL, FEAT_ATOL)
+                try:
+                    _close(f"frame {idx} {label} own {key}", a[mask],
+                           b[mask], FEAT_RTOL, FEAT_ATOL)
+                except AssertionError:
+                    if not key.startswith("dec."):
+                        raise
+                    w = projection_witness(got["stage"], replay.step_params,
+                                           grads, ref_g, key)
+                    if not w["witness"]:
+                        raise
+                    rounding.append(dict(w, step=len(held)))
+                    continue
                 n, n_all = n + int(mask.sum()), n_all + mask.size
         held.append(n / n_all)
 
+    def optimise(stage_loss, *args, **kwargs):
+        """mapper.optimise, keeping the last stage-loss call's arguments
+        (projection_witness)."""
+        def keep(op, fid, slot, with_color):
+            got["stage"] = (stage_loss, fid, slot, with_color)
+            return stage_loss(op, fid, slot, with_color)
+        return OPTIMISE(keep, *args, **kwargs)
+
     replay = mapper_replay(rec, check, slam.npc, own_step)
+    overlap: list = []
     with pytest.MonkeyPatch.context() as mp:
         replay.install(mp)
         mp.setattr(tM, "map_scan", _record(got, "map_scan", tM.map_scan))
+        mp.setattr(tM, "optimise", optimise)
+        mp.setattr(tM, "sorted", overlap_scores(overlap.append),
+                   raising=False)
         params, expo_out, info = slam.mapper.map(
             idx, frame, slam.npc, slam.params, expo, rec["c2w"])
     assert slam.mapper.rng.bit_generator.state == rec["rng_out"], \
         "the mapper's numpy stream left step"
+    # the keyframes' overlap scores, exactly (host float64 in both)
+    assert overlap == (rec["overlap"] or []), (overlap, rec["overlap"])
     assert replay.state["npc"] == rec["npc_keys_out"], \
         "insertion calls differ in number"
     assert replay.n_steps == len(rec["steps"])
@@ -1007,12 +1298,16 @@ def check_mapping(reference, port, idx):
         lv = slam.npc.levels[name]
         n0, n1 = rec["levels"][name]["count"], lv_ref["count"]
         assert lv.count == n1, (name, lv.count, n1)
+        assert lv.capacity == lv_ref["capacity"], \
+            (name, lv.capacity, lv_ref["capacity"])
         np.testing.assert_array_equal(lv.pos[n0:n1].numpy(),
                                       lv_ref["pos"][n0:n1],
                                       err_msg=f"frame {idx} {name} new pos")
         for k in ("geo", "col"):
             _close(f"frame {idx} {name}.{k}", getattr(lv, k)[:n1].numpy(),
                    lv_ref[k][:n1], FEAT_RTOL, FEAT_ATOL)
+    assert tile_shapes(slam.npc) == rec["tiles"], \
+        f"frame {idx} tile index {tile_shapes(slam.npc)} {rec['tiles']}"
     scans = got["map_scan"]
     assert [c["args"][13] for c in scans] == [s["level"] for s in
                                               rec["scans"]]
@@ -1029,6 +1324,7 @@ def check_mapping(reference, port, idx):
     geo = np.median([e["feat.geo"] for e in leaf_errors])
     assert geo <= GEO_FEAT_GRAD_MEDIAN, geo
     assert sum(kinks) <= MAX_KINK_STEPS, kinks
+    assert len({r["step"] for r in rounding}) <= MAX_ROUNDING_STEPS, rounding
     # the hand-back: the final step's parameters (the reference's, handed
     # over) scattered back into the levels and returned
     port_params = convert.params_to_numpy(params)
@@ -1049,7 +1345,7 @@ def check_mapping(reference, port, idx):
            grad_leaf_max=leaf_max, feat_geo_grad_median=float(geo),
            own_step_held_min=min(held),
            kink_steps=[i for i, k in enumerate(kinks) if k],
-           kink_parts=kink_parts)
+           kink_parts=kink_parts, projection_rounding=rounding)
 
 
 # --------------------------------------------------------------------------

@@ -196,3 +196,46 @@ def test_lane_lists_match_plain_and_pallas(name, lanes):
     ed, ev = emulate_lists(x, payload, k, lanes)
     np.testing.assert_array_equal(ed, pd, err_msg="values")
     np.testing.assert_array_equal(ev, pv, err_msg="selected")
+
+
+@pytest.fixture
+def one_torch_thread():
+    """One torch thread inside: many small ops, and several test processes
+    at once."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("kind", ["uniform", "ties", "big_tail", "inf_nan",
+                                  "signed"])
+def test_plain_equals_its_passes(kind, one_torch_thread):
+    """topk_rows_plain (torch.topk, ties resolved by column, the rows with
+    fewer than k entries below BIG, a NaN or a sign bit left to the passes)
+    against its definition, the k argmin passes (_topk_rows_passes), bit
+    for bit, with and without payload, over shapes and k up to C."""
+    g = torch.Generator().manual_seed(["uniform", "ties", "big_tail",
+                                       "inf_nan", "signed"].index(kind))
+    for _ in range(60):
+        n, C = (int(v) for v in torch.randint(1, 48, (2,), generator=g))
+        k = int(torch.randint(1, C + 1, (1,), generator=g))
+        r = torch.rand(n, C, generator=g)
+        if kind == "uniform":
+            x = torch.rand(n, C, generator=g)
+        elif kind == "signed":
+            x = torch.randn(n, C, generator=g).round()
+            x[r < 0.1] = -0.0
+        else:
+            x = torch.randint(0, 4, (n, C), generator=g).float()
+            if kind != "ties":
+                x[r < 0.4] = BIG
+            if kind == "inf_nan":
+                x[r > 0.9] = float("inf")
+                x[r > 0.97] = float("nan")
+        for payload in (None, torch.rand(n, C, generator=g)):
+            got = tK.topk_rows_plain(x, payload, k)
+            want = tK._topk_rows_passes(x, payload, k)
+            for a, b in zip(got, want):
+                np.testing.assert_array_equal(a.numpy().view(np.int32),
+                                              b.numpy().view(np.int32))
