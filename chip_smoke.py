@@ -5,6 +5,8 @@
     python3 chip_smoke.py --phases device,build,topk,maploss
     python3 chip_smoke.py --phases device,build,trunks,trackloss
     python3 chip_smoke.py --phases device,build,band      # ATE band, ~7 min
+    python3 chip_smoke.py --phases device,build,orbit --scenario synth_tpu \
+        --route fused plain --seeds 0 1 2   # orbit_compare.py's port side
     python3 chip_smoke.py --phases device,build,quality   # repro_quality.sh
                                                           # at seeds 0-2
 
@@ -170,6 +172,16 @@ Phases, each printed as one JSON line when it starts and when it ends:
            synth_noisy.yaml (--band-configs) for all 30 frames at seeds
            0-4 (BAND_SEEDS, or --seeds) on the slam and slam_fused paths:
            each ATE beside the reference's band
+  orbit    (only when named in --phases) the port's side of
+           orbit_compare.py's comparison on the card: the configs that
+           orbit_compare.write_config writes for each --scenario
+           (synth_tpu: 15 frames; synth_quality: 120) on each --route
+           (fused, plain) at --seeds (ORBIT_SEEDS), each run through the
+           CLI as the slam run is, each route's kernels asserted launched
+           and not (ORBIT_KERNELS); one record a run (impl port, device
+           cuda, scenario, route, seed, ATE, seconds, launches), printed
+           and appended to <--out>/orbit/runs.jsonl, both of which
+           orbit_compare.py --summary reads
   quality  (only when named in --phases) repro_quality.sh on the port
            at seeds 0, 1, 2 (QUALITY_SEEDS, or --seeds): the 120 frames
            of synth_quality.yaml, its mesh at voxel 5/512 m against the
@@ -1893,6 +1905,21 @@ BAND_REFERENCE_CM = {"synth_tpu": {"seeds": [0, 1, 2],
                      "synth_noisy": {"seeds": [1219, 7, 3],
                                      "ate_cm": [1.92, 2.59, 2.19]}}
 
+# orbit: orbit_compare.py's synthetic scenarios (synth_tpu at 15 frames,
+# synth_quality uncut) on its two routes, the port's side on the card
+ORBIT_SCENARIOS = ("synth_tpu",)
+ORBIT_ROUTES = ("fused", "plain")
+ORBIT_SEEDS = (0, 1, 2, 3, 4)
+# the kernels each route must launch (> 0) and must not (== 0): the fused
+# route is the slam run's path (the plain tracker, union mapping on #3;
+# synth_quality's panels at frames 50 and 100 render on #4); the plain
+# route runs the decoders' plain trunks, so #1 alone
+ORBIT_KERNELS = {
+    "fused": (("topk_rows", "maploss_bwd"),
+              ("maploss_fwd", "trunks_bwd") + _TRACKLOSS + _COMPOSITE),
+    "plain": (("topk_rows",), _MAPLOSS + _TRUNKS + _TRACKLOSS + _COMPOSITE
+              + _TRACKLOSS_BF16)}
+
 
 @contextlib.contextmanager
 def world1_group(name: str):
@@ -2101,6 +2128,15 @@ def geo_decoder_changes(cfg_path: str, state: dict) -> dict:
     return out
 
 
+def slam_config(spec, seed=None) -> dict:
+    """The config run_slam writes for ``spec`` (base config, additions,
+    ...) at ``seed``: the additions over the base, quiet."""
+    base, additions = spec[:2]
+    return merged(additions, {"inherit_from": os.path.join(HERE, base),
+                              "verbose": False},
+                  {} if seed is None else {"seed": seed})
+
+
 def run_slam(out_dir: str, name: str = "slam", profile: bool = False,
              tag: str = "", spec=None, seed=None, max_ate=ATE_MAX_M,
              keep: bool = False):
@@ -2120,13 +2156,12 @@ def run_slam(out_dir: str, name: str = "slam", profile: bool = False,
     from hpslam_tpu_torch import run as R
     from hpslam_tpu_torch.utils.logger import (latest_checkpoint,
                                                load_checkpoint)
-    base, additions, launched, not_launched = spec or SLAM_RUNS[name]
+    spec = spec or SLAM_RUNS[name]
+    launched, not_launched = spec[2:]
     work = tempfile.mkdtemp(prefix="hpslam_smoke_")
     try:
         cfg_path = os.path.join(work, "smoke.yaml")
-        cfg = merged(additions, {"inherit_from": os.path.join(HERE, base),
-                                 "verbose": False},
-                     {} if seed is None else {"seed": seed})
+        cfg = slam_config(spec, seed)
         with open(cfg_path, "w") as f:
             yaml.safe_dump(cfg, f)
         argv = [cfg_path, "--input_folder", os.path.join(work, "in")]
@@ -2225,6 +2260,60 @@ def run_band(out_dir: str, seeds=BAND_SEEDS, configs=tuple(BAND_CONFIGS)
                 out["runs"].append(row)
                 emit({"band_run": row})
     return out
+
+
+def orbit_spec(scenario: str, route: str, seed: int) -> tuple:
+    """run_slam's spec for orbit_compare.py's run of ``scenario`` on
+    ``route`` at ``seed``: the config that orbit_compare.write_config
+    writes for it (its data.output left to run_slam) and ORBIT_KERNELS'
+    kernels for the route."""
+    import yaml
+    import orbit_compare
+    with tempfile.TemporaryDirectory(prefix="hpslam_orbit_") as d:
+        path = os.path.join(d, "orbit.yaml")
+        orbit_compare.write_config(path, scenario, seed,
+                                   os.path.join(d, "out"), route=route)
+        with open(path) as f:
+            cfg = yaml.safe_load(f)
+    base = cfg.pop("inherit_from")
+    cfg["data"].pop("output")
+    if not cfg["data"]:
+        del cfg["data"]
+    return (base, cfg) + ORBIT_KERNELS[route]
+
+
+def run_orbit(out_dir: str, seeds=ORBIT_SEEDS, scenarios=ORBIT_SCENARIOS,
+              routes=ORBIT_ROUTES) -> dict:
+    """The port's side of orbit_compare.py on the card: each of
+    ``scenarios`` on each of ``routes`` at ``seeds`` through run_slam (the
+    route's kernels asserted launched, and not), each run's record (the
+    fields of orbit_compare's, device "cuda", the launches) printed and
+    appended to <out_dir>/orbit/runs.jsonl.  Reports; holds no ATE
+    limit."""
+    os.makedirs(os.path.join(out_dir, "orbit"), exist_ok=True)
+    n = 0
+    for scenario in scenarios:
+        for route in routes:
+            for seed in seeds:
+                t0 = time.perf_counter()
+                s, _traj = run_slam(
+                    out_dir, "orbit", tag=f"_{scenario}_{route}_{seed}",
+                    spec=orbit_spec(scenario, route, seed), seed=seed,
+                    max_ate=None)
+                rec = {"impl": "port", "device": "cuda",
+                       "scenario": scenario, "route": route, "seed": seed,
+                       "rc": 0, "ate_rmse_m": s["ate_rmse_m"],
+                       "seconds": time.perf_counter() - t0,
+                       "track_ms_mean": s["track_ms_mean"],
+                       "map_ms_mean": s["map_ms_mean"],
+                       "n_frames": s["n_frames"],
+                       "launches": s["launches"]}
+                emit(rec)
+                with open(os.path.join(out_dir, "orbit", "runs.jsonl"),
+                          "a") as f:
+                    f.write(json.dumps(rec) + "\n")
+                n += 1
+    return {"runs": n}
 
 
 def run_repeat(out_dir: str, first: dict, served=None) -> dict:
@@ -3394,10 +3483,17 @@ def main(argv=None) -> int:
                     help="repeat each SLAM run under torch.profiler and "
                          "report where the device time goes")
     ap.add_argument("--seeds", type=int, nargs="+", default=None,
-                    help="the seeds of the band and quality phases "
-                         "(default: BAND_SEEDS, QUALITY_SEEDS)")
+                    help="the seeds of the band, orbit and quality "
+                         "phases (default: BAND_SEEDS, ORBIT_SEEDS, "
+                         "QUALITY_SEEDS)")
     ap.add_argument("--band-configs", default=",".join(BAND_CONFIGS),
                     help="the band phase's configs, comma-separated")
+    ap.add_argument("--scenario", nargs="+", default=list(ORBIT_SCENARIOS),
+                    choices=["synth_tpu", "synth_quality"],
+                    help="the orbit phase's orbit_compare.py scenarios")
+    ap.add_argument("--route", nargs="+", default=list(ORBIT_ROUTES),
+                    choices=["fused", "plain"],
+                    help="the orbit phase's orbit_compare.py routes")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     import torch
@@ -3495,6 +3591,10 @@ def main(argv=None) -> int:
             emit({"band": run_band(
                 out_dir, args.seeds or BAND_SEEDS,
                 args.band_configs.split(","))})
+    if "orbit" in phases:
+        with phase("orbit", seconds):
+            emit({"orbit": run_orbit(out_dir, args.seeds or ORBIT_SEEDS,
+                                     args.scenario, args.route)})
     if "quality" in phases:
         with phase("quality", seconds):
             emit({"quality": run_quality(out_dir,

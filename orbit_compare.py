@@ -32,23 +32,37 @@ Without ``--route`` each takes its 'auto'.
 
 Each run's record is also appended, with its scenario and route, to
 ``runs.jsonl`` in ``--out``, so that seeds may be gathered over several
-invocations.  ``--summary`` reads such files (or the ``runs.jsonl`` of the
-directories named) and, for each scenario and route, compares the two
-implementations' ATEs at the seeds both have (``compare``): the difference
-of means, port - reference, with a 95 % bootstrap interval (10,000
-resamples, a fixed seed), and a two-sided Mann-Whitney U p-value.  The
-verdict: ``closed`` where the interval's upper end lies below +0.35 cm;
-``fault`` where the interval lies wholly above 0 and p < 0.05; ``open``
-otherwise, with the seeds a side that would put the interval's half-width
-under the distance from the difference to the nearer of those two
-verdicts, at the same spread.
+invocations.  ``--summary`` reads such files (or every ``.jsonl`` file
+under the directories named, as ``orbit_runs/``, which keeps the
+records of the repo's comparisons) and, for each scenario and route,
+compares the two implementations' ATEs at the seeds both have
+(``compare``): the difference of means, port - reference, with a 95 %
+bootstrap interval (10,000 resamples, a fixed seed), and a two-sided
+Mann-Whitney U p-value.  The verdict: ``closed`` where the interval's
+upper end lies below +0.35 cm; ``fault`` where the interval lies wholly
+above 0 and p < 0.05; ``open`` otherwise, with the seeds a side that
+would put the interval's half-width under the distance from the
+difference to the nearer of those two verdicts, at the same spread.
 It also reads ``band_run`` lines of ``chip_smoke.py`` (``slam_fused``
 against ``slam``) and reports each implementation's fused route against
 its plain one the same way.
 
+The port's side also runs on the card: ``chip_smoke.py --phases
+device,build,orbit --scenario synth_tpu --route fused plain --seeds ...``
+runs the port's CLI on the configs that ``write_config`` writes and
+prints one record a run (with ``"device": "cuda"``), which ``--summary``
+reads from the smoke's log or from its ``--out``
+(``orbit/runs.jsonl``).  A record's side is its implementation, followed
+by ``@device`` where it ran on another device than the CPU (records
+without ``device`` are CPU records): ``port`` and ``port@cuda`` are kept
+apart, and ``--summary`` compares ``port@cuda`` with ``reference`` and
+with ``port`` (a finding within the port: a fault there is one of the
+card path) as it compares ``port`` with ``reference``.
+
 It is a comparison of the two implementations, as the tests are, and not
-an entry point of either: the reference runs on the CPU only, so the port
-runs there too, asked for with ``--device cpu``.
+an entry point of either: the reference runs on the CPU only, and the
+port's runs here are CPU runs too, asked for with ``--device cpu``
+(``--impl reference`` leaves them to the card's ``orbit`` phase).
 
 For ``orbit`` it writes one 8-frame ScanNet tree of the synthetic room (a
 quarter orbit of radius 1.2 m in 8 frames: 23.6 cm and 11.25 degrees a
@@ -94,8 +108,11 @@ SYNTHETIC = {
     "synth_quality": ("configs/Synthetic/synth_quality.yaml", {}),
 }
 ROUTES = {"plain": False, "fused": True}
-# --summary's pairs: implementation -> the one it is held against
-PAIRS = {"port": "reference", "slam_fused": "slam"}
+# --summary's pairs: (side, the side it is held against); a side is an
+# implementation, with "@device" for a record of another device than the
+# CPU
+PAIRS = (("port", "reference"), ("port@cuda", "reference"),
+         ("port@cuda", "port"), ("slam_fused", "slam"))
 # the rule (--summary): closed below this upper end of the interval, in cm
 CLOSE_CM = 0.35
 BOOT_RESAMPLES, BOOT_SEED = 10_000, 0
@@ -209,14 +226,27 @@ def compare(a, b) -> dict:
             "verdict": verdict, "seeds_a_side_to_decide": seeds}
 
 
+def side(record: dict) -> str:
+    """The side a record belongs to: its implementation, with "@device"
+    where it names a device other than the CPU."""
+    dev = record.get("device")
+    return record["impl"] + ("" if dev in (None, "cpu") else f"@{dev}")
+
+
 def read_runs(paths) -> list:
-    """(scenario, route, impl, seed, ate cm) from orbit_compare records
-    (files, or directories holding runs.jsonl) and chip_smoke band_run
-    lines (impl the smoke's path, route None)."""
-    rows = []
+    """(scenario, route, side, seed, ate cm) from orbit_compare records
+    and chip_smoke orbit records (files such as the smoke's log, or
+    directories, whose .jsonl files at any depth are read) and chip_smoke
+    band_run lines (side the smoke's path, route None)."""
+    files = []
     for p in paths:
         if os.path.isdir(p):
-            p = os.path.join(p, "runs.jsonl")
+            files += sorted(os.path.join(d, n) for d, _, ns in os.walk(p)
+                            for n in ns if n.endswith(".jsonl"))
+        else:
+            files.append(p)
+    rows = []
+    for p in files:
         with open(p) as f:
             for line in f:
                 try:
@@ -231,16 +261,16 @@ def read_runs(paths) -> list:
                                  b["seed"], b["ate_cm"]))
                 elif "impl" in r and r.get("ate_rmse_m") is not None:
                     rows.append((r.get("scenario"), r.get("route"),
-                                 r["impl"], r["seed"],
+                                 side(r), r["seed"],
                                  100 * r["ate_rmse_m"]))
     return rows
 
 
 def summary(paths) -> list:
-    """For each scenario and route, each pair of implementations compared
-    at their common seeds (port - reference, slam_fused - slam); for each
-    scenario and implementation its fused route against its plain one.
-    A seed run twice keeps its last record."""
+    """For each scenario and route, each of PAIRS compared at their common
+    seeds (port - reference, port@cuda - reference, port@cuda - port,
+    slam_fused - slam); for each scenario and side its fused route against
+    its plain one.  A seed run twice keeps its last record."""
     runs = {}
     for scen, route, impl, seed, ate in read_runs(paths):
         runs.setdefault((scen, route, impl), {})[seed] = ate
@@ -256,10 +286,10 @@ def summary(paths) -> list:
                                       [b[s] for s in seeds])))
 
     for (scen, route, impl), a in sorted(runs.items(), key=str):
-        other = PAIRS.get(impl)
-        if (scen, route, other) in runs:
-            add("packages", (scen, route), a, runs[(scen, route, other)],
-                [impl, other])
+        for other in (b for s, b in PAIRS if s == impl):
+            if (scen, route, other) in runs:
+                add("packages", (scen, route), a,
+                    runs[(scen, route, other)], [impl, other])
         if route == "fused" and (scen, "plain", impl) in runs:
             add("routes", (scen, impl), a, runs[(scen, "plain", impl)],
                 ["fused", "plain"])
